@@ -1,0 +1,20 @@
+"""infercnv_tpu_torch: the PyTorch/CUDA port of infercnv_tpu for NVIDIA Hopper.
+
+The JAX package ``infercnv_tpu`` is the reference; this package does the same
+work in PyTorch, with each of its TPU kernels rewritten by hand in CUDA C++
+for ``sm_90a`` (sources under ``csrc/``, built with nvcc at first use into
+``build/infercnv_tpu_torch/``).  It imports neither JAX nor ``infercnv_tpu``.
+
+Entry points run on the CUDA device unless the caller passes
+``device="cpu"``; on the CPU every kernel wrapper runs its plain PyTorch
+version instead.
+
+Ported so far: the default streaming engine
+(:class:`infercnv_tpu_torch.parallel.engine.CnvEngine`: reference
+statistics, residual chunks, subcluster sums and the group-mean Viterbi).
+"""
+
+from infercnv_tpu_torch.device import resolve_device
+
+__all__ = ["resolve_device"]
+__version__ = "0.1.0"

@@ -1,0 +1,66 @@
+"""Shared inputs of the tests that hold infercnv_tpu_torch against infercnv_tpu.
+
+Everything is made from a seed with numpy and handed to both packages as
+numpy arrays; the JAX side runs on the CPU (conftest.py), the port on
+device="cpu", where each kernel wrapper runs its plain PyTorch version.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from infercnv_tpu.core.genome import GeneOrder as JaxGeneOrder
+from infercnv_tpu.models.hmm import HMMParams as JaxHMMParams
+from infercnv_tpu_torch.core.genome import GeneOrder
+from infercnv_tpu_torch.models.hmm import HMMParams
+
+#: i6 emission parameters of the bundled example's hspike (bench.py)
+MEANS = np.array([0.135, 0.631, 1.0, 1.346, 1.702, 2.237])
+SDS = np.array([0.221, 0.252, 0.211, 0.288, 0.341, 0.457])
+#: the round-number i6 parameters of tests/test_parallel.py
+MEANS_ROUND = np.array([0.01, 0.5, 1.0, 1.5, 2.0, 3.0])
+SDS_ROUND = np.array([0.15, 0.18, 0.12, 0.2, 0.22, 0.3])
+
+
+def realistic_sizes() -> np.ndarray:
+    """22 chromosomes, 8448 genes: the bench workload's genome (bench.py:76-87)."""
+    sizes = np.linspace(800, 120, 22).astype(int)
+    sizes = (sizes / sizes.sum() * 8448).astype(int)
+    sizes[0] += 8448 - sizes.sum()
+    return sizes
+
+
+def genome_fields(lens) -> dict:
+    G = int(sum(lens))
+    return dict(
+        names=tuple(f"g{i}" for i in range(G)),
+        chr_names=tuple(f"chr{i + 1}" for i in range(len(lens))),
+        chr_ids=np.repeat(np.arange(len(lens)), lens).astype(np.int32),
+        start=np.arange(G, dtype=np.int64) * 1000,
+        stop=np.arange(G, dtype=np.int64) * 1000 + 500,
+    )
+
+
+def gene_orders(lens):
+    """(JAX GeneOrder, port GeneOrder) of the same genome."""
+    f = genome_fields(lens)
+    return JaxGeneOrder(**f), GeneOrder(**f)
+
+
+def hmms(means=MEANS_ROUND, sds=SDS_ROUND, t=1e-6):
+    """(JAX HMMParams, port HMMParams) with the same fields."""
+    return (JaxHMMParams(means=means, sds=sds, t=t),
+            HMMParams(means=means, sds=sds, t=t))
+
+
+def np_(a) -> np.ndarray:
+    """A JAX array or torch tensor as numpy (bf16 widened to f32)."""
+    if hasattr(a, "detach"):
+        a = a.detach().cpu()
+        if str(a.dtype) == "torch.bfloat16":
+            a = a.float()
+        return a.numpy()
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        a = a.astype(np.float32)
+    return a

@@ -3,11 +3,11 @@
 
     python3 benchmarks/torch_breakdown.py      (from the repository root)
 
-Same workload as chip_smoke.py's main_path phase (8448 genes, 32768-cell u16
-chunks, 16 subclusters).  Prints JSON lines:
+Same workload as chip_smoke.py's main_path phase, from its make_inputs
+(8448 genes, 32768-cell u16 chunks, 16 subclusters).  Prints JSON lines:
   residual   the fused residual kernel by variant: median vs mean centring
-             (the difference is the radix select), rows per block 1/2,
-             and the smooth kernel alone over the same chunk
+             (the difference is the radix select), with the denoised
+             second output, and the smooth kernel alone over the same chunk
   chunk      the pieces of one subcluster_chunk: residual kernel, group-sum
              matmul, and (for comparison) denoise as separate PyTorch ops
   profile    torch.profiler over 2 subcluster_chunk calls: device time by
@@ -27,7 +27,6 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def main() -> int:
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -35,42 +34,21 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
-    from infercnv_tpu_torch.models.hmm import HMMParams
     from infercnv_tpu_torch.ops.residual_fused import (
         counts_to_f32, denoise, residual_fused)
     from infercnv_tpu_torch.ops.smoothing import apply_banded
-    from infercnv_tpu_torch.parallel.engine import CnvEngine, EngineConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     smi = cs.nvidia_smi()
-    go = cs.bench_genome()
-    G = go.num_genes
-    hmm = HMMParams(means=np.array([0.135, 0.631, 1.0, 1.346, 1.702, 2.237]),
-                    sds=np.array([0.221, 0.252, 0.211, 0.288, 0.341, 0.457]),
-                    t=1e-6)
-    engine = CnvEngine(go, hmm, EngineConfig(), device=dev)
+    inp = cs.make_inputs(dev)
+    engine, counts, nf, onehot = inp.engine, inp.counts_a, inp.nf, inp.onehot
+    ml, mr, noise, b = inp.ml, inp.mr, inp.noise, inp.bounds
     w = engine.weights
-    rng = np.random.default_rng(cs.SEED)
-    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
-    gm = torch.tensor(rng.gamma(2.0, 30.0, G), dtype=torch.float32, device=dev)
-    counts = cs.make_counts(gm[None, :].repeat(cs.CHUNK, 1), gen)
-    ref = torch.poisson(gm[None, :].repeat(cs.N_REF, 1), generator=gen)
-    nf = float(np.median(counts_to_f32(counts).sum(dim=1).cpu().numpy()))
-    onehot_ref = torch.zeros((2, cs.N_REF), device=dev)
-    onehot_ref[0, :cs.N_REF // 2] = 1
-    onehot_ref[1, cs.N_REF // 2:] = 1
-    labels = torch.arange(cs.CHUNK, device=dev) % cs.N_SUB
-    onehot = torch.zeros((cs.N_SUB, cs.CHUNK), device=dev)
-    onehot[labels, torch.arange(cs.CHUNK, device=dev)] = 1
-    ml, mr, noise = engine.ref_stats(ref, nf, onehot_ref)
-    b = [ml.amin(0).contiguous(), ml.amax(0).contiguous(),
-         mr.amin(0).contiguous(), mr.amax(0).contiguous()]
     t = cs.time_ms
 
-    res = {f"median_rows_{r}": t(lambda r=r: residual_fused(counts, w, *b, nf, rows_per_block=r))
-           for r in (1, 2)}
-    res["mean_rows_1"] = t(lambda: residual_fused(counts, w, *b, nf, center_mean=True))
+    res = {"median": t(lambda: residual_fused(counts, w, *b, nf))}
+    res["mean"] = t(lambda: residual_fused(counts, w, *b, nf, center_mean=True))
     res["median_with_denoised"] = t(lambda: residual_fused(counts, w, *b, nf,
                                                            noise_bounds=noise))
     x = counts_to_f32(counts)
@@ -81,7 +59,7 @@ def main() -> int:
 
     resid = residual_fused(counts, w, *b, nf)
     chunk = {
-        "residual_kernel": res["median_rows_1"],
+        "residual_kernel": res["median_with_denoised"],
         "group_sums_matmul": t(lambda: onehot @ resid),
         "denoise_alone": t(lambda: denoise(resid, noise)),
         "bounds_rows": t(lambda: [ml.amin(0), ml.amax(0), mr.amin(0), mr.amax(0)]),

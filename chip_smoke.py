@@ -117,6 +117,61 @@ def make_counts(lam, gen):
     return c.clamp_(max=32767).to(torch.int16).view(torch.uint16)
 
 
+def make_inputs(dev):
+    """The main path's workload, made from SEED on the card: bench.py's
+    genome and HMM, the default engine, two u16 count chunks with the planted
+    loss (chr2) and gain (chr5) in subclusters N_SUB/2.., the reference
+    cells in 2 groups, the subcluster membership, and the reference
+    statistics with the residual kernel's four bound rows."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from infercnv_tpu_torch.models.hmm import HMMParams
+    from infercnv_tpu_torch.ops.residual_fused import counts_to_f32
+    from infercnv_tpu_torch.parallel.engine import CnvEngine, EngineConfig
+
+    go = bench_genome()
+    G = go.num_genes
+    hmm = HMMParams(means=np.array([0.135, 0.631, 1.0, 1.346, 1.702, 2.237]),
+                    sds=np.array([0.221, 0.252, 0.211, 0.288, 0.341, 0.457]),
+                    t=1e-6)
+    engine = CnvEngine(go, hmm, EngineConfig(denoise=True, sd_amplifier=1.5),
+                       device=dev)
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    gene_means = torch.tensor(rng.gamma(2.0, 30.0, G), dtype=torch.float32,
+                              device=dev)
+    labels = torch.arange(CHUNK, device=dev) % N_SUB
+    lam = gene_means[None, :].repeat(CHUNK, 1)
+    tumour = labels >= N_SUB // 2
+    genes = torch.arange(G, device=dev)
+    for name, fold in (("chr2", 0.5), ("chr5", 2.0)):
+        idx = torch.as_tensor(go.chr_gene_indices(name), device=dev)
+        lam[tumour[:, None] & torch.isin(genes, idx)[None, :]] *= fold
+    counts_a = make_counts(lam, gen)
+    counts_b = make_counts(lam, gen)
+    del lam
+    ref_counts = torch.poisson(gene_means[None, :].repeat(N_REF, 1),
+                               generator=gen)
+    nf = float(np.median(counts_to_f32(counts_a).sum(dim=1).cpu().numpy()))
+    onehot_ref = torch.zeros((2, N_REF), device=dev)
+    onehot_ref[0, :N_REF // 2] = 1
+    onehot_ref[1, N_REF // 2:] = 1
+    onehot = torch.zeros((N_SUB, CHUNK), device=dev)
+    onehot[labels, torch.arange(CHUNK, device=dev)] = 1
+    ml, mr, noise = engine.ref_stats(ref_counts, nf, onehot_ref)
+    bounds = [ml.amin(0).contiguous(), ml.amax(0).contiguous(),
+              mr.amin(0).contiguous(), mr.amax(0).contiguous()]
+    torch.cuda.synchronize()
+    return types.SimpleNamespace(
+        go=go, hmm=hmm, engine=engine, gen=gen, counts_a=counts_a,
+        counts_b=counts_b, ref_counts=ref_counts, nf=nf,
+        onehot_ref=onehot_ref, onehot=onehot, ml=ml, mr=mr, noise=noise,
+        bounds=bounds)
+
+
 def counters():
     from infercnv_tpu_torch.ops import residual_fused, smoothing, viterbi_kernel
 
@@ -128,7 +183,6 @@ def run(dev) -> int:
     import numpy as np
     import torch
 
-    from infercnv_tpu_torch.models.hmm import HMMParams
     from infercnv_tpu_torch.ops import _build
     from infercnv_tpu_torch.ops.residual_fused import (
         counts_to_f32, denoise, residual_fused, residual_fused_plain)
@@ -158,41 +212,16 @@ def run(dev) -> int:
          library=lib_path.name, ptxas=ptxas)
 
     # ---- shared inputs ------------------------------------------------
-    go = bench_genome()
+    inp = make_inputs(dev)
+    go, hmm, engine = inp.go, inp.hmm, inp.engine
+    counts_a, counts_b, ref_counts, nf = (inp.counts_a, inp.counts_b,
+                                          inp.ref_counts, inp.nf)
+    onehot_ref, onehot, gen = inp.onehot_ref, inp.onehot, inp.gen
+    ml, mr, noise = inp.ml, inp.mr, inp.noise
+    b1, b2 = inp.bounds[:2], inp.bounds[2:]
     G = go.num_genes
-    hmm = HMMParams(means=np.array([0.135, 0.631, 1.0, 1.346, 1.702, 2.237]),
-                    sds=np.array([0.221, 0.252, 0.211, 0.288, 0.341, 0.457]),
-                    t=1e-6)
-    engine = CnvEngine(go, hmm, EngineConfig(denoise=True, sd_amplifier=1.5),
-                       device=dev)
     w = engine.weights
     nnz = int((w.band != 0).sum())
-    rng = np.random.default_rng(SEED)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    gene_means = torch.tensor(rng.gamma(2.0, 30.0, G), dtype=torch.float32,
-                              device=dev)
-    labels = torch.arange(CHUNK, device=dev) % N_SUB
-    lam = gene_means[None, :].repeat(CHUNK, 1)
-    tumour = labels >= N_SUB // 2
-    chr2 = torch.as_tensor(go.chr_gene_indices("chr2"), device=dev)
-    chr5 = torch.as_tensor(go.chr_gene_indices("chr5"), device=dev)
-    lam[tumour[:, None] & torch.isin(torch.arange(G, device=dev), chr2)[None, :]] *= 0.5
-    lam[tumour[:, None] & torch.isin(torch.arange(G, device=dev), chr5)[None, :]] *= 2.0
-    counts_a = make_counts(lam, gen)
-    counts_b = make_counts(lam, gen)
-    del lam
-    ref_counts = torch.poisson(gene_means[None, :].repeat(N_REF, 1),
-                               generator=gen)
-    nf = float(np.median(counts_to_f32(counts_a).sum(dim=1).cpu().numpy()))
-    onehot_ref = torch.zeros((2, N_REF), device=dev)
-    onehot_ref[0, :N_REF // 2] = 1
-    onehot_ref[1, N_REF // 2:] = 1
-    onehot = torch.zeros((N_SUB, CHUNK), device=dev)
-    onehot[labels, torch.arange(CHUNK, device=dev)] = 1
-    ml, mr, noise = engine.ref_stats(ref_counts, nf, onehot_ref)
-    b1 = [ml.amin(0).contiguous(), ml.amax(0).contiguous()]
-    b2 = [mr.amin(0).contiguous(), mr.amax(0).contiguous()]
-    torch.cuda.synchronize()
 
     def close(got, want):
         err = (got.float() - want.float()).abs()
@@ -212,7 +241,6 @@ def run(dev) -> int:
     rows["smooth_banded"] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: apply_banded(x, w)),
-        ms_rows_per_block_2=time_ms(lambda: apply_banded(x, w, rows_per_block=2)),
         plain_ms=time_ms(lambda: apply_banded_plain(x, w)),
         library_ms=time_ms(lambda: torch.matmul(x, W)),
         bound=bound(2 * x.numel() * 4 + w.band.numel() * 4, 2.0 * nnz * N_REF),
@@ -248,20 +276,24 @@ def run(dev) -> int:
     require(torch.equal(residual_fused(counts_to_f32(small).contiguous(), w, *b1, *b2, nf),
                         rk[torch.float32][:4096]),
             "residual_fused: f32 counts and u16 counts disagree")
+    # The main path runs the variant with the denoised second output (its
+    # residual equals the f32 one above bit for bit, and the denoised output
+    # equals denoise() of it), so the row's time and bound are that
+    # variant's: the counts in, two f32 outputs, the band and bound rows.
     c_bytes = counts_a.numel() * 2 + w.band.numel() * 4 + 4 * G * 4
     rows["residual_fused"] = dict(
         max_abs_err=err, variants_max_abs_err=variants,
-        ms=time_ms(lambda: residual_fused(counts_a, w, *b1, *b2, nf)),
+        ms=time_ms(lambda: residual_fused(counts_a, w, *b1, *b2, nf,
+                                          noise_bounds=noise)),
+        ms_without_denoised=time_ms(lambda: residual_fused(counts_a, w, *b1, *b2, nf)),
         ms_f16_out=time_ms(lambda: residual_fused(counts_a, w, *b1, *b2, nf,
                                                   out_dtype=torch.float16)),
-        ms_with_denoised=time_ms(lambda: residual_fused(
-            counts_a, w, *b1, *b2, nf, noise_bounds=noise)),
-        ms_rows_per_block_2=time_ms(lambda: residual_fused(
-            counts_a, w, *b1, *b2, nf, rows_per_block=2)),
-        plain_ms=time_ms(lambda: residual_fused_plain(counts_a, w, *b1, *b2, nf),
-                         reps=3),
+        plain_ms=time_ms(lambda: residual_fused_plain(
+            counts_a, w, *b1, *b2, nf, noise_bounds=noise), reps=3),
         library_ms=None,
-        bound=bound(c_bytes + counts_a.numel() * 4, 2.0 * nnz * CHUNK),
+        bound=bound(c_bytes + 2 * counts_a.numel() * 4, 2.0 * nnz * CHUNK),
+        bound_ms_without_denoised=bound(c_bytes + counts_a.numel() * 4,
+                                        2.0 * nnz * CHUNK)[0],
         shape=list(counts_a.shape))
 
     # ---- kernel 2: Viterbi, subcluster (B = 208) and cells mode --------

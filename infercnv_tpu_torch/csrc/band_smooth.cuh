@@ -8,12 +8,7 @@
 
 namespace icnv {
 
-// Most rows a block holds at once (each thread keeps accumulators per row).
-// More rows share each band read but cost registers and shared memory; with
-// the common column in shared memory, 1 row a block measured fastest on the
-// H100 and is the wrappers' default.
-constexpr int kMaxRows = 2;
-// Threads per block of the row kernels.
+// Threads per block of the row kernels (one row a block).
 constexpr int kThreads = 256;
 // Consecutive outputs per thread in the smooth (one float4).
 constexpr int kOut = 4;
@@ -50,44 +45,35 @@ struct Band {
   int nedge;
 };
 
-// Shared memory of the smooth: the common column, the rows, and the edge
-// groups' results.
-__host__ __device__ inline size_t band_rows_smem_bytes(int G, int t4, int rows,
-                                                       int nedge) {
-  return sizeof(float) * ((size_t)band_rows(t4) +
-                          (size_t)rows * row_stride(G, t4) +
-                          (size_t)rows * nedge * kOut);
+// Shared memory of the smooth: the common column, the padded row, and the
+// edge groups' results.
+__host__ __device__ inline size_t band_smooth_smem_bytes(int G, int t4,
+                                                         int nedge) {
+  return sizeof(float) * ((size_t)band_rows(t4) + row_stride(G, t4) +
+                          (size_t)nedge * kOut);
 }
 
-// Zero the pads of nr padded rows (the x part is filled by the caller).
-__device__ inline void zero_row_pads(float* xs, int nr, int G, int t4) {
+// Zero the pads of a padded row (the x part is filled by the caller).
+__device__ inline void zero_row_pads(float* row, int G, int t4) {
   const int P = row_stride(G, t4);
-  for (int r = 0; r < nr; ++r) {
-    float* row = xs + r * P;
-    for (int i = threadIdx.x; i < t4; i += blockDim.x) row[i] = 0.0f;
-    for (int i = t4 + G + threadIdx.x; i < P; i += blockDim.x) row[i] = 0.0f;
-  }
+  for (int i = threadIdx.x; i < t4; i += blockDim.x) row[i] = 0.0f;
+  for (int i = t4 + G + threadIdx.x; i < P; i += blockDim.x) row[i] = 0.0f;
 }
 
-// kOut consecutive outputs g..g+3 (g a multiple of 4) of nr rows:
-//   acc[r][j] = sum_e w[e][g + j] * x[r][g + j + e - t4]
+// kOut consecutive outputs g..g+3 (g a multiple of 4):
+//   acc[j] = sum_e w[e][g + j] * x[g + j + e - t4]
 // with w the common column (kCommon, from shared memory csm) or band4.  The
-// thread slides a window of 8 values (two float4) along each row, so one
-// shared-memory load and the weights of four taps (shared by all rows) feed
-// 16 FMAs a row.  Taps are summed in order of e.
+// thread slides a window of 8 values (two float4) along the row, so one
+// shared-memory load and the weights of four taps feed 16 FMAs.  Taps are
+// summed in order of e.
 template <bool kCommon>
-__device__ inline void smooth_group(const float* xs, int nr, int P,
+__device__ inline void smooth_group(const float* row,
                                     const float* __restrict__ band4,
                                     const float* csm, int Gr, int E, int g,
-                                    float (&acc)[kMaxRows][kOut]) {
+                                    float (&acc)[kOut]) {
 #pragma unroll
-  for (int r = 0; r < kMaxRows; ++r)
-#pragma unroll
-    for (int j = 0; j < kOut; ++j) acc[r][j] = 0.0f;
-  float4 a[kMaxRows];
-#pragma unroll
-  for (int r = 0; r < kMaxRows; ++r)
-    if (r < nr) a[r] = *reinterpret_cast<const float4*>(xs + r * P + g);
+  for (int j = 0; j < kOut; ++j) acc[j] = 0.0f;
+  float4 a = *reinterpret_cast<const float4*>(row + g);
   for (int e0 = 0; e0 < E; e0 += 4) {
     float w[4][kOut];
     if constexpr (kCommon) {
@@ -108,69 +94,52 @@ __device__ inline void smooth_group(const float* xs, int nr, int P,
         w[k][3] = v.w;
       }
     }
+    const float4 b = *reinterpret_cast<const float4*>(row + g + e0 + 4);
+    const float win[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
 #pragma unroll
-    for (int r = 0; r < kMaxRows; ++r) {
-      if (r < nr) {
-        const float4 b =
-            *reinterpret_cast<const float4*>(xs + r * P + g + e0 + 4);
-        const float win[8] = {a[r].x, a[r].y, a[r].z, a[r].w,
-                              b.x,    b.y,    b.z,    b.w};
+    for (int k = 0; k < 4; ++k)
 #pragma unroll
-        for (int k = 0; k < 4; ++k)
-#pragma unroll
-          for (int j = 0; j < kOut; ++j)
-            acc[r][j] = fmaf(w[k][j], win[k + j], acc[r][j]);
-        a[r] = b;
-      }
-    }
+      for (int j = 0; j < kOut; ++j)
+        acc[j] = fmaf(w[k][j], win[k + j], acc[j]);
+    a = b;
   }
 }
 
 // Outputs g..g+3 in the tiled pass: a common group is computed here, an
 // edge group was computed before the pass and is read from ebuf.
-__device__ inline void tile_group(const float* xs, int nr, int P,
-                                  const Band& bd, const float* csm,
-                                  const float* ebuf, int Gr, int E, int g,
-                                  float (&acc)[kMaxRows][kOut]) {
+__device__ inline void tile_group(const float* row, const Band& bd,
+                                  const float* csm, const float* ebuf, int Gr,
+                                  int E, int g, float (&acc)[kOut]) {
   const int s = g < Gr ? bd.slot[g >> 2] : -1;
   if (g < Gr && s < 0) {
-    smooth_group<true>(xs, nr, P, bd.band4, csm, Gr, E, g, acc);
+    smooth_group<true>(row, bd.band4, csm, Gr, E, g, acc);
     return;
   }
 #pragma unroll
-  for (int r = 0; r < kMaxRows; ++r)
-#pragma unroll
-    for (int j = 0; j < kOut; ++j)
-      acc[r][j] = (s >= 0 && r < nr) ? ebuf[(r * bd.nedge + s) * kOut + j] : 0.0f;
+  for (int j = 0; j < kOut; ++j) acc[j] = s >= 0 ? ebuf[s * kOut + j] : 0.0f;
 }
 
-__device__ inline void store_outputs(float* xs, int nr, int P, int G, int t4,
-                                     int g, const float (&acc)[kMaxRows][kOut]) {
+__device__ inline void store_outputs(float* row, int G, int t4, int g,
+                                     const float (&acc)[kOut]) {
+  float* dst = row + t4 + g;
+  if (g + kOut <= G) {
+    *reinterpret_cast<float4*>(dst) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+  } else {
 #pragma unroll
-  for (int r = 0; r < kMaxRows; ++r) {
-    if (r < nr) {
-      float* dst = xs + r * P + t4 + g;
-      if (g + kOut <= G) {
-        *reinterpret_cast<float4*>(dst) =
-            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < kOut; ++j)
-          if (g + j < G) dst[j] = acc[r][j];
-      }
-    }
+    for (int j = 0; j < kOut; ++j)
+      if (g + j < G) dst[j] = acc[j];
   }
 }
 
-// In-place banded smooth of nr padded rows (see row_stride) in shared memory:
+// In-place banded smooth of one padded row (see row_stride) in shared memory:
 //
-//   y[r][g] = sum_{d=0}^{2t} band[d][g] * x[r][g + d - t]
+//   y[g] = sum_{d=0}^{2t} band[d][g] * x[g + d - t]
 //
 // (through Band, which carries the same weights; the band is zero across
 // chromosome boundaries and renormalised at chromosome ends, see
-// ops/layout.py _band_from_kernel).  Each weight is read once per block and
-// applied to all nr rows.  csm: band_rows(t4) floats of shared memory for the
-// common column; ebuf: nr * bd.nedge * kOut floats for the edge groups.
+// ops/layout.py _band_from_kernel).  csm: band_rows(t4) floats of shared
+// memory for the common column; ebuf: bd.nedge * kOut floats for the edge
+// groups.
 //
 // First the edge groups are smoothed, spread over all threads, from band4:
 // their loads come from L2, and in the tiled pass they would stall the warp
@@ -181,10 +150,8 @@ __device__ inline void store_outputs(float* xs, int nr, int P, int G, int t4,
 // reads the last t4 values of x in this tile; then they overwrite x.  Two
 // register sets alternate, so no staging buffer is needed.  Requires
 // t4 + 4 <= blockDim.x * kOut.  The pads stay zero.
-__device__ inline void band_smooth_rows(float* xs, int nr, int G,
-                                        const Band& bd, int t4, float* csm,
-                                        float* ebuf) {
-  const int P = row_stride(G, t4);
+__device__ inline void band_smooth_row(float* row, int G, const Band& bd,
+                                       int t4, float* csm, float* ebuf) {
   const int Gr = round4(G);
   const int E = band_rows(t4);
   const int TW = blockDim.x * kOut;
@@ -192,60 +159,42 @@ __device__ inline void band_smooth_rows(float* xs, int nr, int G,
   const int off = threadIdx.x * kOut;
   for (int i = threadIdx.x; i < E; i += blockDim.x) csm[i] = bd.common[i];
   for (int i = threadIdx.x; i < bd.nedge; i += blockDim.x) {
-    float acc[kMaxRows][kOut];
-    smooth_group<false>(xs, nr, P, bd.band4, csm, Gr, E, bd.edges[i] * kOut,
-                        acc);
+    float acc[kOut];
+    smooth_group<false>(row, bd.band4, csm, Gr, E, bd.edges[i] * kOut, acc);
 #pragma unroll
-    for (int r = 0; r < kMaxRows; ++r)
-      if (r < nr)
-#pragma unroll
-        for (int j = 0; j < kOut; ++j)
-          ebuf[(r * bd.nedge + i) * kOut + j] = acc[r][j];
+    for (int j = 0; j < kOut; ++j) ebuf[i * kOut + j] = acc[j];
   }
   __syncthreads();
-  float acc_a[kMaxRows][kOut];
-  float acc_b[kMaxRows][kOut];
+  float acc_a[kOut];
+  float acc_b[kOut];
   for (int k = 0; k < ntile; k += 2) {
-    tile_group(xs, nr, P, bd, csm, ebuf, Gr, E, k * TW + off, acc_a);
+    tile_group(row, bd, csm, ebuf, Gr, E, k * TW + off, acc_a);
     __syncthreads();
-    if (k > 0) store_outputs(xs, nr, P, G, t4, (k - 1) * TW + off, acc_b);
+    if (k > 0) store_outputs(row, G, t4, (k - 1) * TW + off, acc_b);
     if (k + 1 < ntile) {
-      tile_group(xs, nr, P, bd, csm, ebuf, Gr, E, (k + 1) * TW + off, acc_b);
+      tile_group(row, bd, csm, ebuf, Gr, E, (k + 1) * TW + off, acc_b);
       __syncthreads();
     }
-    store_outputs(xs, nr, P, G, t4, k * TW + off, acc_a);
+    store_outputs(row, G, t4, k * TW + off, acc_a);
   }
-  if ((ntile & 1) == 0)
-    store_outputs(xs, nr, P, G, t4, (ntile - 1) * TW + off, acc_b);
+  if ((ntile & 1) == 0) store_outputs(row, G, t4, (ntile - 1) * TW + off, acc_b);
   __syncthreads();
 }
 
-// Block-wide sums of v[r] for r < nr, in a fixed order (deterministic);
-// every thread receives the totals.  red: kMaxRows * 32 floats of shared
-// memory.  blockDim.x must be a multiple of 32 and at most 1024.
-__device__ inline void block_sum_rows(float (&v)[kMaxRows], int nr,
-                                      float* red) {
+// Block-wide sum of v in a fixed order (deterministic); every thread
+// receives the total.  red: 32 floats of shared memory.  blockDim.x must be
+// a multiple of 32 and at most 1024.
+__device__ inline float block_sum(float v, float* red) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
-#pragma unroll
-  for (int r = 0; r < kMaxRows; ++r) {
-    if (r < nr) {
-      float s = v[r];
-      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xFFFFFFFFu, s, o);
-      if (lane == 0) red[r * 32 + warp] = s;
-    }
-  }
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, o);
+  if (lane == 0) red[warp] = v;
   __syncthreads();
-#pragma unroll
-  for (int r = 0; r < kMaxRows; ++r) {
-    if (r < nr) {
-      float s = lane < nw ? red[r * 32 + lane] : 0.0f;
-      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xFFFFFFFFu, s, o);
-      v[r] = s;
-    }
-  }
+  float s = lane < nw ? red[lane] : 0.0f;
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xFFFFFFFFu, s, o);
   __syncthreads();
+  return s;
 }
 
 }  // namespace icnv

@@ -17,20 +17,22 @@
 //      compute in four more passes over the chunk
 //
 // What bounds it on the H100: a 32768 x 8448 u16 chunk moves 0.55 GB in and
-// 1.1 GB out (f32), ~0.5 ms at 3.35 TB/s, while the smooth alone is
-// 101 FMAs per output, 56 GFLOP, ~0.84 ms at the 67 TFLOP/s f32 CUDA-core
-// rate; so the bound is the operations.  The design keeps every
-// intermediate of a row in shared memory (8448 f32 = 33 KB a row, zero-padded
-// by the halfband on both sides), so device memory sees the counts once and
-// the result once.  In the smooth (band_smooth.cuh) each thread computes four
-// neighbouring outputs from a sliding float4 window, so shared memory serves
-// one load per 16 FMAs; interior genes take the band's common column from
-// shared memory and only the chromosome-end groups read the band from L2, in
-// a pass of their own so that they do not stall every tile.  One row a block
-// (the default) measured faster than two.  The radix passes skip warps that
-// hold no candidate key (after two passes nearly all of them).  The TPU
-// kernel's 128-lane tiles, VMEM budget and zero-padded 384-deep block stack
-// do not carry over.
+// 1.1 GB out (f32), 0.50 ms at 3.35 TB/s, while the smooth alone is
+// 2 x 797148 nonzero band entries x 32768 rows = 52.2 GFLOP, 0.78 ms at the
+// 67 TFLOP/s f32 CUDA-core rate; so the bound is the operations.  With the
+// denoised second output (what the engine runs when denoise is on) the
+// traffic is 2.77 GB, 0.83 ms, and the bound is the bytes.  The design keeps
+// every intermediate of a row in shared memory (8448 f32 = 33 KB a row,
+// zero-padded by the halfband on both sides), so device memory sees the
+// counts once and each result once.  One block holds one row.  In the smooth
+// (band_smooth.cuh) each thread computes four neighbouring outputs from a
+// sliding float4 window, so shared memory serves one load per 16 FMAs;
+// interior genes take the band's common column from shared memory and only
+// the chromosome-end groups read the band from L2, in a pass of their own so
+// that they do not stall every tile.  The radix passes skip warps that hold
+// no candidate key (after two passes nearly all of them).  The TPU kernel's
+// 128-lane tiles, VMEM budget and zero-padded 384-deep block stack do not
+// carry over.
 //
 // Build without --use_fast_math: log2f / exp2f must stay accurate, and
 // flushing subnormals would change the median's keys.
@@ -69,80 +71,69 @@ __device__ __forceinline__ __nv_bfloat16 store_cast<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// counts rows -> f32 rows in shared memory, with per-thread partial sums.
-// xs points at x[0] of row 0; rows are P apart.
+// A counts row -> f32 in shared memory; returns this thread's partial sum.
 template <typename InT>
-__device__ inline void load_rows(const InT* __restrict__ counts, int row0,
-                                 int nr, int G, float* xs, int P,
-                                 float (&part)[kMaxRows]) {
-#pragma unroll
-  for (int r = 0; r < kMaxRows; ++r) {
-    if (r < nr) {
-      const InT* src = counts + (size_t)(row0 + r) * G;
-      for (int g = threadIdx.x; g < G; g += blockDim.x) {
-        const float c = static_cast<float>(src[g]);
-        xs[r * P + g] = c;
-        part[r] += c;
-      }
-    }
+__device__ inline float load_row(const InT* __restrict__ src, int G,
+                                 float* x) {
+  float part = 0.0f;
+  for (int g = threadIdx.x; g < G; g += blockDim.x) {
+    const float c = static_cast<float>(src[g]);
+    x[g] = c;
+    part += c;
   }
+  return part;
 }
 
-// Exact k-th smallest (0-based) of each of nr rows of xs (G values, rows P
-// apart) by an 8-bit radix select on the order-preserving keys: 4 passes
-// from the top byte down, each a shared-memory histogram of the next digit among the
-// keys that match the digits chosen so far.  Equal digits within a warp are
-// merged before the atomic in the first pass (__match_any_sync): residual
-// keys share their top bytes, so plain atomics would serialise on a few bins
-// there; later passes spread over many bins and take plain atomics.  A warp
-// with no key matching the prefix skips the pass.  Warp r then scans row r's
-// 256 bins.  On return prefix[r] is the key of the k-th value
-// and krem[r] is k minus the number of keys below it.
-__device__ inline void radix_select_rows(const float* xs, int nr, int G,
-                                         int P, int k, int* hist,
-                                         unsigned* prefix, int* krem) {
+// Exact k-th smallest (0-based) of the G values of x by an 8-bit radix
+// select on the order-preserving keys: 4 passes from the top byte down, each
+// a shared-memory histogram of the next digit among the keys that match the
+// digits chosen so far.  Equal digits within a warp are merged before the
+// atomic in the first pass (__match_any_sync): residual keys share their top
+// bytes, so plain atomics would serialise on a few bins there; later passes
+// spread over many bins and take plain atomics.  A warp with no key matching
+// the prefix skips the pass.  Warp 0 then scans the 256 bins.  On return
+// *prefix is the key of the k-th value and *krem is k minus the number of
+// keys below it.
+__device__ inline void radix_select_row(const float* x, int G, int k,
+                                        int* hist, unsigned* prefix,
+                                        int* krem) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int warp = tid >> 5;
   const int T = blockDim.x;
-  if (tid < nr) {
-    prefix[tid] = 0u;
-    krem[tid] = k;
+  if (tid == 0) {
+    *prefix = 0u;
+    *krem = k;
   }
   for (int shift = 24; shift >= 0; shift -= 8) {
-    for (int i = tid; i < nr * 256; i += T) hist[i] = 0;
+    for (int i = tid; i < 256; i += T) hist[i] = 0;
     __syncthreads();
     const unsigned hmask = shift == 24 ? 0u : (0xFFFFFFFFu << (shift + 8));
-    for (int r = 0; r < nr; ++r) {
-      const unsigned pre = prefix[r];
-      int* h = hist + r * 256;
-      for (int base = 0; base < G; base += T) {
-        const int g = base + tid;
-        unsigned tag = 0x100u + lane;  // unique: merges with no digit
-        if (g < G) {
-          const unsigned key = f2key(xs[r * P + g]);
-          if (((key ^ pre) & hmask) == 0u) tag = (key >> shift) & 0xFFu;
-        }
-        if (__ballot_sync(0xFFFFFFFFu, tag < 0x100u) == 0u) continue;
-        if (shift < 24) {
-          if (tag < 0x100u) atomicAdd(h + tag, 1);
-          continue;
-        }
-        const unsigned peers = __match_any_sync(0xFFFFFFFFu, tag);
-        if (tag < 0x100u && lane == __ffs(peers) - 1)
-          atomicAdd(h + tag, __popc(peers));
+    const unsigned pre = *prefix;
+    for (int base = 0; base < G; base += T) {
+      const int g = base + tid;
+      unsigned tag = 0x100u + lane;  // unique: merges with no digit
+      if (g < G) {
+        const unsigned key = f2key(x[g]);
+        if (((key ^ pre) & hmask) == 0u) tag = (key >> shift) & 0xFFu;
       }
+      if (__ballot_sync(0xFFFFFFFFu, tag < 0x100u) == 0u) continue;
+      if (shift < 24) {
+        if (tag < 0x100u) atomicAdd(hist + tag, 1);
+        continue;
+      }
+      const unsigned peers = __match_any_sync(0xFFFFFFFFu, tag);
+      if (tag < 0x100u && lane == __ffs(peers) - 1)
+        atomicAdd(hist + tag, __popc(peers));
     }
     __syncthreads();
-    if (warp < nr) {
-      const int* h = hist + warp * 256;
-      const int kk = krem[warp];
+    if (tid < 32) {
+      const int kk = *krem;
       __syncwarp();
       int c[8];
       int s = 0;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        c[j] = h[lane * 8 + j];
+        c[j] = hist[lane * 8 + j];
         s += c[j];
       }
       int inc = s;
@@ -155,8 +146,8 @@ __device__ inline void radix_select_rows(const float* xs, int nr, int G,
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           if (kk < run + c[j]) {
-            prefix[warp] |= static_cast<unsigned>(lane * 8 + j) << shift;
-            krem[warp] = kk - run;
+            *prefix |= static_cast<unsigned>(lane * 8 + j) << shift;
+            *krem = kk - run;
             break;
           }
           run += c[j];
@@ -169,20 +160,19 @@ __device__ inline void radix_select_rows(const float* xs, int nr, int G,
 
 struct ResidualSmem {
   float* csm;        // band_rows(t4): the band's common column
-  float* xs;         // rows padded rows: counts, then x, then the smooth
-  float* ebuf;       // rows * nedge * kOut: the smooth's edge groups
-  float* red;        // kMaxRows * 32: block sums
-  int* hist;         // kMaxRows * 256: radix histograms
-  unsigned* prefix;  // kMaxRows
-  int* krem;         // kMaxRows
-  unsigned* maxkey;  // kMaxRows
+  float* row;        // the padded row: counts, then x, then the smooth
+  float* ebuf;       // nedge * kOut: the smooth's edge groups
+  float* red;        // 32: block sums
+  int* hist;         // 256: radix histogram
+  unsigned* prefix;  // 1
+  int* krem;         // 1
+  unsigned* maxkey;  // 1
 };
 
-__host__ __device__ inline size_t residual_smem_bytes(int G, int t4, int rows,
+__host__ __device__ inline size_t residual_smem_bytes(int G, int t4,
                                                       int nedge) {
-  return band_rows_smem_bytes(G, t4, rows, nedge) +
-         sizeof(float) * kMaxRows * 32 + sizeof(int) * kMaxRows * 256 +
-         3 * sizeof(unsigned) * kMaxRows;
+  return band_smooth_smem_bytes(G, t4, nedge) + sizeof(float) * 32 +
+         sizeof(int) * 256 + 3 * sizeof(unsigned);
 }
 
 template <typename OutT>
@@ -194,110 +184,84 @@ residual_fused_kernel(const void* __restrict__ counts, int in_code, Band bd,
                       const float* __restrict__ b2max, float nf, float mct,
                       int center_mean, OutT* __restrict__ out,
                       const float* __restrict__ noise,
-                      float* __restrict__ denoised, int C, int G, int t4,
-                      int rows) {
+                      float* __restrict__ denoised, int G, int t4) {
   extern __shared__ float4 smem4[];
-  const int P = row_stride(G, t4);
   ResidualSmem sm;
   sm.csm = reinterpret_cast<float*>(smem4);
-  sm.xs = sm.csm + band_rows(t4);
-  sm.ebuf = sm.xs + (size_t)rows * P;
-  sm.red = sm.ebuf + (size_t)rows * bd.nedge * kOut;
-  sm.hist = reinterpret_cast<int*>(sm.red + kMaxRows * 32);
-  sm.prefix = reinterpret_cast<unsigned*>(sm.hist + kMaxRows * 256);
-  sm.krem = reinterpret_cast<int*>(sm.prefix + kMaxRows);
-  sm.maxkey = reinterpret_cast<unsigned*>(sm.krem + kMaxRows);
-  float* xs = sm.xs + t4;  // x[0] of row 0; row r starts r * P later
+  sm.row = sm.csm + band_rows(t4);
+  sm.ebuf = sm.row + row_stride(G, t4);
+  sm.red = sm.ebuf + (size_t)bd.nedge * kOut;
+  sm.hist = reinterpret_cast<int*>(sm.red + 32);
+  sm.prefix = reinterpret_cast<unsigned*>(sm.hist + 256);
+  sm.krem = reinterpret_cast<int*>(sm.prefix + 1);
+  sm.maxkey = reinterpret_cast<unsigned*>(sm.krem + 1);
+  float* xs = sm.row + t4;  // x[0]
   const int tid = threadIdx.x;
   const int T = blockDim.x;
-  const int row0 = blockIdx.x * rows;
-  const int nr = min(rows, C - row0);
-  zero_row_pads(sm.xs, nr, G, t4);
+  const size_t base = (size_t)blockIdx.x * G;
+  zero_row_pads(sm.row, G, t4);
 
-  // 1. counts -> f32, row sums (exact for integer counts below 2^24)
-  float v[kMaxRows];
-#pragma unroll
-  for (int r = 0; r < kMaxRows; ++r) v[r] = 0.0f;
+  // 1. counts -> f32, row sum (exact for integer counts below 2^24)
+  float cs;
   switch (in_code) {
     case kU16:
-      load_rows(static_cast<const unsigned short*>(counts), row0, nr, G, xs, P, v);
+      cs = load_row(static_cast<const unsigned short*>(counts) + base, G, xs);
       break;
     case kI16:
-      load_rows(static_cast<const short*>(counts), row0, nr, G, xs, P, v);
+      cs = load_row(static_cast<const short*>(counts) + base, G, xs);
       break;
     case kI32:
-      load_rows(static_cast<const int*>(counts), row0, nr, G, xs, P, v);
+      cs = load_row(static_cast<const int*>(counts) + base, G, xs);
       break;
     case kU32:
-      load_rows(static_cast<const unsigned*>(counts), row0, nr, G, xs, P, v);
+      cs = load_row(static_cast<const unsigned*>(counts) + base, G, xs);
       break;
     default:
-      load_rows(static_cast<const float*>(counts), row0, nr, G, xs, P, v);
+      cs = load_row(static_cast<const float*>(counts) + base, G, xs);
       break;
   }
-  block_sum_rows(v, nr, sm.red);
+  cs = block_sum(cs, sm.red);
 
   // 2-3. normalise + log2, stage-1 bounds (where-form), clip
-  for (int r = 0; r < nr; ++r) {
-    const float cs = v[r];
-    for (int g = tid; g < G; g += T) {
-      float x = log2f(__fadd_rn(__fmul_rn(__fdiv_rn(xs[r * P + g], cs), nf),
-                                1.0f));
-      const float lo = b1min[g];
-      const float hi = b1max[g];
-      const float above = x > hi ? x - hi : 0.0f;
-      x = x < lo ? x - lo : above;
-      xs[r * P + g] = fminf(fmaxf(x, -mct), mct);
-    }
+  for (int g = tid; g < G; g += T) {
+    float x = log2f(__fadd_rn(__fmul_rn(__fdiv_rn(xs[g], cs), nf), 1.0f));
+    const float lo = b1min[g];
+    const float hi = b1max[g];
+    const float above = x > hi ? x - hi : 0.0f;
+    x = x < lo ? x - lo : above;
+    xs[g] = fminf(fmaxf(x, -mct), mct);
   }
   __syncthreads();
 
   // 4. banded smooth, in place
-  band_smooth_rows(sm.xs, nr, G, bd, t4, sm.csm, sm.ebuf);
+  band_smooth_row(sm.row, G, bd, t4, sm.csm, sm.ebuf);
 
   // 5. row centre: mean, or the exact median
-  float centre[kMaxRows];
+  float centre;
   if (center_mean) {
-#pragma unroll
-    for (int r = 0; r < kMaxRows; ++r) {
-      v[r] = 0.0f;
-      if (r < nr)
-        for (int g = tid; g < G; g += T) v[r] += xs[r * P + g];
-    }
-    block_sum_rows(v, nr, sm.red);
-#pragma unroll
-    for (int r = 0; r < kMaxRows; ++r)
-      centre[r] = __fdiv_rn(v[r], static_cast<float>(G));
+    float v = 0.0f;
+    for (int g = tid; g < G; g += T) v += xs[g];
+    centre = __fdiv_rn(block_sum(v, sm.red), static_cast<float>(G));
   } else {
     const int k2 = G / 2;  // upper middle order statistic
-    radix_select_rows(xs, nr, G, P, k2, sm.hist, sm.prefix, sm.krem);
-    if ((G & 1) == 0) {
+    radix_select_row(xs, G, k2, sm.hist, sm.prefix, sm.krem);
+    const unsigned v2 = *sm.prefix;
+    if (G & 1) {
+      centre = key2f(v2);
+    } else {
       // lower middle: the largest key below v2, unless v2 repeats there
-      if (tid < nr) sm.maxkey[tid] = 0u;
+      if (tid == 0) *sm.maxkey = 0u;
       __syncthreads();
-      for (int r = 0; r < nr; ++r) {
-        const unsigned v2 = sm.prefix[r];
-        unsigned m = 0u;
-        for (int g = tid; g < G; g += T) {
-          const unsigned key = f2key(xs[r * P + g]);
-          if (key < v2 && key > m) m = key;
-        }
-        m = __reduce_max_sync(0xFFFFFFFFu, m);
-        if ((tid & 31) == 0) atomicMax(sm.maxkey + r, m);
+      unsigned m = 0u;
+      for (int g = tid; g < G; g += T) {
+        const unsigned key = f2key(xs[g]);
+        if (key < v2 && key > m) m = key;
       }
+      m = __reduce_max_sync(0xFFFFFFFFu, m);
+      if ((tid & 31) == 0) atomicMax(sm.maxkey, m);
       __syncthreads();
-    }
-#pragma unroll
-    for (int r = 0; r < kMaxRows; ++r) {
-      if (r < nr) {
-        const unsigned v2 = sm.prefix[r];
-        if (G & 1) {
-          centre[r] = key2f(v2);
-        } else {
-          const unsigned v1 = sm.krem[r] > 0 ? v2 : sm.maxkey[r];
-          centre[r] = __fmul_rn(__fadd_rn(key2f(v1), key2f(v2)), 0.5f);
-        }
-      }
+      const unsigned v1 = *sm.krem > 0 ? v2 : *sm.maxkey;
+      centre = __fmul_rn(__fadd_rn(key2f(v1), key2f(v2)), 0.5f);
     }
   }
 
@@ -308,21 +272,16 @@ residual_fused_kernel(const void* __restrict__ counts, int in_code, Band bd,
     dn_lo = dn_mean - noise[1];
     dn_hi = dn_mean + noise[1];
   }
-#pragma unroll
-  for (int r = 0; r < kMaxRows; ++r) {
-    if (r < nr) {
-      OutT* dst = out + (size_t)(row0 + r) * G;
-      float* dn = denoised == nullptr ? nullptr : denoised + (size_t)(row0 + r) * G;
-      for (int g = tid; g < G; g += T) {
-        const float y = xs[r * P + g] - centre[r];
-        const float lo = b2min[g];
-        const float hi = b2max[g];
-        const float above = y > hi ? y - hi : 0.0f;
-        const float res = exp2f(y < lo ? y - lo : above);
-        dst[g] = store_cast<OutT>(res);
-        if (dn != nullptr) dn[g] = (res > dn_lo && res < dn_hi) ? dn_mean : res;
-      }
-    }
+  OutT* dst = out + base;
+  float* dn = denoised == nullptr ? nullptr : denoised + base;
+  for (int g = tid; g < G; g += T) {
+    const float y = xs[g] - centre;
+    const float lo = b2min[g];
+    const float hi = b2max[g];
+    const float above = y > hi ? y - hi : 0.0f;
+    const float res = exp2f(y < lo ? y - lo : above);
+    dst[g] = store_cast<OutT>(res);
+    if (dn != nullptr) dn[g] = (res > dn_lo && res < dn_hi) ? dn_mean : res;
   }
 }
 
@@ -332,15 +291,14 @@ cudaError_t launch_residual(const void* counts, int in_code, const Band& bd,
                             const float* b2min, const float* b2max, float nf,
                             float mct, int center_mean, void* out,
                             const float* noise, float* denoised, int C, int G,
-                            int t4, int rows, size_t smem, cudaStream_t stream) {
+                            int t4, size_t smem, cudaStream_t stream) {
   auto kern = residual_fused_kernel<OutT>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  const int grid = (C + rows - 1) / rows;
-  kern<<<grid, kThreads, smem, stream>>>(
+  kern<<<C, kThreads, smem, stream>>>(
       counts, in_code, bd, b1min, b1max, b2min, b2max, nf, mct, center_mean,
-      static_cast<OutT*>(out), noise, denoised, C, G, t4, rows);
+      static_cast<OutT*>(out), noise, denoised, G, t4);
   return cudaGetLastError();
 }
 
@@ -350,7 +308,7 @@ cudaError_t launch_residual(const void* counts, int in_code, const Band& bd,
 // noise: device [2] (mean_ref, spread) and denoised: [C, G] f32, or both null.
 // band4 / common / slot / edges / nedge: the band as struct Band of
 // band_smooth.cuh; t4: the halfband rounded up to a multiple of 4.
-// rows: 1..kMaxRows (fails if that many rows do not fit).
+// One block a row (fails if a row does not fit in shared memory).
 extern "C" int ic_residual_fused(const void* counts, int in_code,
                                  const float* band4, const float* common,
                                  const int* slot, const int* edges, int nedge,
@@ -359,12 +317,12 @@ extern "C" int ic_residual_fused(const void* counts, int in_code,
                                  const float* b2max, float nf, float mct,
                                  int center_mean, void* out, int out_code,
                                  const float* noise, float* denoised, int C,
-                                 int G, int t4, int rows, void* stream) {
+                                 int G, int t4, void* stream) {
   using namespace icnv;
   if (C < 0 || G <= 0 || t4 < 0 || t4 % 4 || t4 + 4 > kThreads * kOut ||
       nedge < 0 || nedge > round4(G) / kOut || in_code < 0 ||
-      in_code > kU32 || out_code < 0 || out_code > 2 || rows < 1 ||
-      rows > kMaxRows || (noise == nullptr) != (denoised == nullptr))
+      in_code > kU32 || out_code < 0 || out_code > 2 ||
+      (noise == nullptr) != (denoised == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (C == 0) return 0;
   int dev = 0, optin = 0;
@@ -373,7 +331,7 @@ extern "C" int ic_residual_fused(const void* counts, int in_code,
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                dev);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const size_t smem = residual_smem_bytes(G, t4, rows, nedge);
+  const size_t smem = residual_smem_bytes(G, t4, nedge);
   if (smem > (size_t)optin) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Band bd{band4, common, slot, edges, nedge};
@@ -381,18 +339,18 @@ extern "C" int ic_residual_fused(const void* counts, int in_code,
     case 1:
       e = launch_residual<__half>(counts, in_code, bd, b1min, b1max, b2min,
                                   b2max, nf, mct, center_mean, out, noise,
-                                  denoised, C, G, t4, rows, smem, s);
+                                  denoised, C, G, t4, smem, s);
       break;
     case 2:
       e = launch_residual<__nv_bfloat16>(counts, in_code, bd, b1min, b1max,
                                          b2min, b2max, nf, mct, center_mean,
-                                         out, noise, denoised, C, G, t4, rows,
-                                         smem, s);
+                                         out, noise, denoised, C, G, t4, smem,
+                                         s);
       break;
     default:
       e = launch_residual<float>(counts, in_code, bd, b1min, b1max, b2min,
                                  b2max, nf, mct, center_mean, out, noise,
-                                 denoised, C, G, t4, rows, smem, s);
+                                 denoised, C, G, t4, smem, s);
       break;
   }
   return static_cast<int>(e);

@@ -14,8 +14,8 @@
 // taken from a shared-memory copy of the band's common column (see
 // band_smooth.cuh, shared with residual_fused.cu).
 //
-// One block smooths `rows` consecutive rows (1..kMaxRows) with kThreads
-// threads, each row zero-padded in shared memory; the caller allocates y.
+// One block smooths one row with kThreads threads, the row zero-padded in
+// shared memory; the caller allocates y.
 #include <cuda_runtime.h>
 
 #include "band_smooth.cuh"
@@ -24,41 +24,31 @@ namespace icnv {
 
 __global__ void __launch_bounds__(kThreads)
 smooth_banded_kernel(const float* __restrict__ x, Band bd,
-                     float* __restrict__ y, int C, int G, int t4, int rows) {
+                     float* __restrict__ y, int G, int t4) {
   extern __shared__ float4 smem4[];
   float* csm = reinterpret_cast<float*>(smem4);
-  float* xs = csm + band_rows(t4);
-  const int P = row_stride(G, t4);
-  float* ebuf = xs + (size_t)rows * P;
-  const int row0 = blockIdx.x * rows;
-  const int nr = min(rows, C - row0);
-  zero_row_pads(xs, nr, G, t4);
-  for (int r = 0; r < nr; ++r) {
-    const float* src = x + (size_t)(row0 + r) * G;
-    for (int g = threadIdx.x; g < G; g += blockDim.x) xs[r * P + t4 + g] = src[g];
-  }
+  float* row = csm + band_rows(t4);
+  float* ebuf = row + row_stride(G, t4);
+  zero_row_pads(row, G, t4);
+  const float* src = x + (size_t)blockIdx.x * G;
+  for (int g = threadIdx.x; g < G; g += blockDim.x) row[t4 + g] = src[g];
   __syncthreads();
-  band_smooth_rows(xs, nr, G, bd, t4, csm, ebuf);
-  for (int r = 0; r < nr; ++r) {
-    float* dst = y + (size_t)(row0 + r) * G;
-    for (int g = threadIdx.x; g < G; g += blockDim.x) dst[g] = xs[r * P + t4 + g];
-  }
+  band_smooth_row(row, G, bd, t4, csm, ebuf);
+  float* dst = y + (size_t)blockIdx.x * G;
+  for (int g = threadIdx.x; g < G; g += blockDim.x) dst[g] = row[t4 + g];
 }
 
 }  // namespace icnv
 
-// rows: 1..kMaxRows (fails if that many rows do not fit).
 // band4 / common / slot / edges / nedge: the band as struct Band of
 // band_smooth.cuh; t4: the halfband rounded up to a multiple of 4.
 extern "C" int ic_smooth_banded(const float* x, const float* band4,
                                 const float* common, const int* slot,
                                 const int* edges, int nedge, float* y, int C,
-                                int G, int t4, int rows,
-                                void* stream) {
+                                int G, int t4, void* stream) {
   using namespace icnv;
   if (C < 0 || G <= 0 || t4 < 0 || t4 % 4 || t4 + 4 > kThreads * kOut ||
-      nedge < 0 || nedge > round4(G) / kOut || rows < 1 ||
-      rows > kMaxRows)
+      nedge < 0 || nedge > round4(G) / kOut)
     return static_cast<int>(cudaErrorInvalidValue);
   if (C == 0) return 0;
   int dev = 0, optin = 0;
@@ -67,15 +57,13 @@ extern "C" int ic_smooth_banded(const float* x, const float* band4,
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                dev);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const size_t smem = band_rows_smem_bytes(G, t4, rows, nedge);
+  const size_t smem = band_smooth_smem_bytes(G, t4, nedge);
   if (smem > (size_t)optin) return static_cast<int>(cudaErrorInvalidValue);
   e = cudaFuncSetAttribute(smooth_banded_kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int grid = (C + rows - 1) / rows;
-  smooth_banded_kernel<<<grid, kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      x, Band{band4, common, slot, edges, nedge}, y, C, G, t4, rows);
+  smooth_banded_kernel<<<C, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      x, Band{band4, common, slot, edges, nedge}, y, G, t4);
   return static_cast<int>(cudaGetLastError());
 }

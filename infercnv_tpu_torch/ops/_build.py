@@ -34,9 +34,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "ic_error_string": ([_I], ctypes.c_char_p),
-    "ic_smooth_banded": ([_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P], _I),
+    "ic_smooth_banded": ([_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P], _I),
     "ic_residual_fused": ([_P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _F, _F,
-                           _I, _P, _I, _P, _P, _I, _I, _I, _I, _P], _I),
+                           _I, _P, _I, _P, _P, _I, _I, _I, _P], _I),
     "ic_viterbi": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _F, _F, _P],
                    _I),
 }

@@ -88,16 +88,13 @@ def residual_fused(counts: torch.Tensor, w: BandWeights,
                    norm_factor: float, mct: float = 3.0,
                    center_mean: bool = False,
                    out_dtype: torch.dtype = torch.float32,
-                   noise_bounds: Optional[torch.Tensor] = None,
-                   rows_per_block: int = 1):
+                   noise_bounds: Optional[torch.Tensor] = None):
     """counts [C, G] (f32, u16, i16, i32 or u32) -> residual [C, G] in
     out_dtype (f32, f16 or bf16; every intermediate stays f32, so a narrow
     output equals the cast of the f32 one).  b*: [G] f32 bound rows.  With
     noise_bounds ([2] f32: mean_ref, spread; f32 output only) it returns
     (residual, denoise(residual, noise_bounds)).  CPU tensors take the plain
-    version; CUDA tensors launch the kernel.
-    rows_per_block (1 or 2) sets how many rows one block holds; 1 measured
-    fastest on the H100."""
+    version; CUDA tensors launch the kernel."""
     if counts.device.type == "cpu":
         return residual_fused_plain(counts, w, b1min, b1max, b2min, b2max,
                                     norm_factor, mct, center_mean, out_dtype,
@@ -135,8 +132,7 @@ def residual_fused(counts: torch.Tensor, w: BandWeights,
             int(center_mean), _build.ptr(out), _OUT_CODES[out_dtype],
             None if noise is None else _build.ptr(noise),
             None if denoised is None else _build.ptr(denoised),
-            counts.shape[0], G, w.halfband4, rows_per_block,
-            _build.stream_of(counts))
+            counts.shape[0], G, w.halfband4, _build.stream_of(counts))
     _build.check(rc, "residual_fused")
     LAUNCHES += 1
     return out if denoised is None else (out, denoised)

@@ -136,11 +136,9 @@ def apply_banded_plain(x: torch.Tensor, w: BandWeights) -> torch.Tensor:
     return out.reshape(C, T * LANE)[:, :w.num_genes].to(torch.float32)
 
 
-def apply_banded(x: torch.Tensor, w: BandWeights,
-                 rows_per_block: int = 1) -> torch.Tensor:
+def apply_banded(x: torch.Tensor, w: BandWeights) -> torch.Tensor:
     """Banded smooth of x [C, G] f32.  CPU tensors take the plain version;
-    CUDA tensors launch the kernel.  rows_per_block (1 or 2) sets how many
-    rows share each read of the band; 1 measured fastest on the H100."""
+    CUDA tensors launch the kernel."""
     if x.device.type == "cpu":
         return apply_banded_plain(x, w)
     global LAUNCHES
@@ -153,7 +151,7 @@ def apply_banded(x: torch.Tensor, w: BandWeights,
     with torch.cuda.device(x.device):
         rc = lib.ic_smooth_banded(
             _build.ptr(x), *w.kernel_args(), _build.ptr(y), x.shape[0],
-            w.num_genes, w.halfband4, rows_per_block, _build.stream_of(x))
+            w.num_genes, w.halfband4, _build.stream_of(x))
     _build.check(rc, "smooth_banded")
     LAUNCHES += 1
     return y

@@ -202,7 +202,7 @@ class CnvEngine:
         G = self.gene_order.num_genes
         K = group_onehot.shape[0]
         nf = self._f32(norm_factor)
-        onehot = np.asarray(group_onehot, np.float32)
+        onehot = _host_f32(group_onehot)
         gn = onehot.sum(axis=1)[:, None]
 
         def chunks():
@@ -239,8 +239,7 @@ class CnvEngine:
         if group_onehot is None:
             group_onehot = np.ones((1, ref_counts.shape[0]), np.float32)
         if int(np.prod(ref_counts.shape)) > _STREAM_REF_ELEMENTS:
-            return self._ref_stats_streamed(ref_counts, norm_factor,
-                                            np.asarray(group_onehot, np.float32))
+            return self._ref_stats_streamed(ref_counts, norm_factor, group_onehot)
         counts = _counts_cast(ref_counts, self.device)
         return self._ref_stats_oneshot(counts, self._f32(norm_factor),
                                        self._f32(group_onehot))
@@ -299,6 +298,13 @@ class CnvEngine:
         else:
             sigma_rows = np.full((K,), self._sigma, np.float32)
         return self._viterbi(group_means, self._f32(sigma_rows))
+
+
+def _host_f32(a) -> np.ndarray:
+    """A numpy float32 copy of an array or a tensor on any device."""
+    if torch.is_tensor(a):
+        a = a.detach().cpu().numpy()
+    return np.asarray(a, np.float32)
 
 
 def _counts_cast(counts, device) -> torch.Tensor:

@@ -21,6 +21,7 @@ from infercnv_tpu.models.hmm import I6_LEVELS
 from infercnv_tpu.parallel.engine import CnvEngine as JaxEngine
 from infercnv_tpu.parallel.engine import EngineConfig as JaxConfig
 from infercnv_tpu_torch.interop import engine_from_numpy, ref_stats_from_numpy
+from infercnv_tpu_torch.parallel import engine as port_engine
 from infercnv_tpu_torch.parallel.engine import CnvEngine, EngineConfig
 
 from torch_port_util import (MEANS, MEANS_ROUND, SDS, SDS_ROUND, gene_orders,
@@ -164,8 +165,10 @@ def test_against_interpreted_pallas_engine(small):
     np.testing.assert_array_equal(np_(ts), np_(js))
 
 
-def test_ref_stats_streamed_matches():
-    """tests/test_parallel.py:230-267: the three-pass streamed statistics."""
+def test_ref_stats_streamed_matches(monkeypatch):
+    """tests/test_parallel.py:230-267: the three-pass streamed statistics,
+    called directly and through ref_stats above the streaming threshold,
+    with the group membership as a numpy array and as a tensor."""
     lens = [200, 200, 200]
     rng = np.random.default_rng(3)
     G = sum(lens)
@@ -177,11 +180,17 @@ def test_ref_stats_streamed_matches():
     je, te = _engines(lens, means=np.arange(1.0, 7.0) / 3.0, sds=np.full(6, 0.1),
                       window_length=31, denoise=False)
     want = je._ref_stats_streamed(counts, nf, onehot, chunk=256)
-    got = te._ref_stats_streamed(counts.astype(np.uint16), nf, onehot, chunk=256)
+    # the port takes the membership as a tensor too, as ref_stats passes it on
+    got = te._ref_stats_streamed(counts.astype(np.uint16), nf,
+                                 torch.from_numpy(onehot), chunk=256)
     oneshot = te.ref_stats(counts, nf, onehot)
-    for g, w, o in zip(got, want, oneshot):
+    monkeypatch.setattr(port_engine, "_STREAM_REF_ELEMENTS", counts.size - 1)
+    via_ref_stats = te.ref_stats(torch.from_numpy(counts), nf,
+                                 torch.from_numpy(onehot))
+    for g, w, o, v in zip(got, want, oneshot, via_ref_stats):
         np.testing.assert_allclose(np_(g), np_(w), rtol=1e-5, atol=1e-6)
         np.testing.assert_allclose(np_(g), np_(o), rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(np_(v), np_(w), rtol=1e-5, atol=1e-6)
 
 
 def test_realistic_genome_states_and_calls():

@@ -4,6 +4,7 @@
 // cannot drift apart.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace icnv {
@@ -14,6 +15,13 @@ constexpr int kThreads = 256;
 constexpr int kOut = 4;
 
 __host__ __device__ inline int round4(int v) { return (v + 3) & ~3; }
+
+// v rounded to the nearest bf16 (ties to even, as torch's and JAX's casts
+// round), back in f32.  The bf16 smooth rounds both operands so: a product
+// of two bf16 values is exact in f32, so only the f32 sums round.
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
 
 // A row of G values lives in shared memory zero-padded on both sides:
 //   [t4 zeros | x[0..G) | zeros up to the stride]

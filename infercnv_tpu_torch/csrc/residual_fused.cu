@@ -8,9 +8,13 @@
 //   1. counts (u16, i16, i32, u32 or f32) -> f32; row sum
 //   2. x = log2(c / rowsum * nf + 1)                 (no FMA contraction)
 //   3. stage-1 bounds in where-form, then clip to +-mct
-//   4. banded smooth (band_smooth.cuh, shared with smooth_banded.cu)
-//   5. exact row median: 8-bit radix select on order-preserving uint32 keys,
-//      (v1 + v2) * 0.5 for even G; or the mean with center_mean
+//   4. banded smooth (band_smooth.cuh, shared with smooth_banded.cu); with
+//      the bf16 flag (the reference's matmul_dtype="bfloat16") x is rounded
+//      to bf16 first and the caller passes bf16-rounded weights, so every
+//      product is exact and only the f32 sums round
+//   5. exact row median: 8-bit radix select on order-preserving uint32 keys
+//      (radix_select.cuh, shared with median.cu), (v1 + v2) * 0.5 for even
+//      G; or the mean with center_mean
 //   6. stage-2 bounds, exp2, store f32 / f16 / bf16 (rounded only here);
 //      optionally also the denoised f32 residual (values inside
 //      mean_ref +- spread become mean_ref), which the engine would otherwise
@@ -41,20 +45,12 @@
 #include <cuda_runtime.h>
 
 #include "band_smooth.cuh"
+#include "radix_select.cuh"
 
 namespace icnv {
 
 // Input dtype codes (the Python wrapper's _IN_CODES).
 enum InCode { kF32 = 0, kU16 = 1, kI16 = 2, kI32 = 3, kU32 = 4 };
-
-__device__ __forceinline__ unsigned f2key(float f) {
-  const unsigned u = __float_as_uint(f);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float key2f(unsigned k) {
-  return __uint_as_float((k & 0x80000000u) ? (k & 0x7FFFFFFFu) : ~k);
-}
 
 template <typename OutT>
 __device__ __forceinline__ OutT store_cast(float v);
@@ -84,98 +80,22 @@ __device__ inline float load_row(const InT* __restrict__ src, int G,
   return part;
 }
 
-// Exact k-th smallest (0-based) of the G values of x by an 8-bit radix
-// select on the order-preserving keys: 4 passes from the top byte down, each
-// a shared-memory histogram of the next digit among the keys that match the
-// digits chosen so far.  Equal digits within a warp are merged before the
-// atomic in the first pass (__match_any_sync): residual keys share their top
-// bytes, so plain atomics would serialise on a few bins there; later passes
-// spread over many bins and take plain atomics.  A warp with no key matching
-// the prefix skips the pass.  Warp 0 then scans the 256 bins.  On return
-// *prefix is the key of the k-th value and *krem is k minus the number of
-// keys below it.
-__device__ inline void radix_select_row(const float* x, int G, int k,
-                                        int* hist, unsigned* prefix,
-                                        int* krem) {
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int T = blockDim.x;
-  if (tid == 0) {
-    *prefix = 0u;
-    *krem = k;
-  }
-  for (int shift = 24; shift >= 0; shift -= 8) {
-    for (int i = tid; i < 256; i += T) hist[i] = 0;
-    __syncthreads();
-    const unsigned hmask = shift == 24 ? 0u : (0xFFFFFFFFu << (shift + 8));
-    const unsigned pre = *prefix;
-    for (int base = 0; base < G; base += T) {
-      const int g = base + tid;
-      unsigned tag = 0x100u + lane;  // unique: merges with no digit
-      if (g < G) {
-        const unsigned key = f2key(x[g]);
-        if (((key ^ pre) & hmask) == 0u) tag = (key >> shift) & 0xFFu;
-      }
-      if (__ballot_sync(0xFFFFFFFFu, tag < 0x100u) == 0u) continue;
-      if (shift < 24) {
-        if (tag < 0x100u) atomicAdd(hist + tag, 1);
-        continue;
-      }
-      const unsigned peers = __match_any_sync(0xFFFFFFFFu, tag);
-      if (tag < 0x100u && lane == __ffs(peers) - 1)
-        atomicAdd(hist + tag, __popc(peers));
-    }
-    __syncthreads();
-    if (tid < 32) {
-      const int kk = *krem;
-      __syncwarp();
-      int c[8];
-      int s = 0;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        c[j] = hist[lane * 8 + j];
-        s += c[j];
-      }
-      int inc = s;
-      for (int o = 1; o < 32; o <<= 1) {
-        const int n = __shfl_up_sync(0xFFFFFFFFu, inc, o);
-        if (lane >= o) inc += n;
-      }
-      int run = inc - s;
-      if (kk >= run && kk < inc) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          if (kk < run + c[j]) {
-            *prefix |= static_cast<unsigned>(lane * 8 + j) << shift;
-            *krem = kk - run;
-            break;
-          }
-          run += c[j];
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
 struct ResidualSmem {
   float* csm;        // band_rows(t4): the band's common column
   float* row;        // the padded row: counts, then x, then the smooth
   float* ebuf;       // nedge * kOut: the smooth's edge groups
   float* red;        // 32: block sums
-  int* hist;         // 256: radix histogram
-  unsigned* prefix;  // 1
-  int* krem;         // 1
-  unsigned* maxkey;  // 1
+  SelectSmem* sel;   // the median select
 };
 
 __host__ __device__ inline size_t residual_smem_bytes(int G, int t4,
                                                       int nedge) {
   return band_smooth_smem_bytes(G, t4, nedge) + sizeof(float) * 32 +
-         sizeof(int) * 256 + 3 * sizeof(unsigned);
+         sizeof(SelectSmem);
 }
 
-template <typename OutT>
+// kBf16: round x to bf16 before the smooth (the reference's bf16 flag).
+template <typename OutT, bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 residual_fused_kernel(const void* __restrict__ counts, int in_code, Band bd,
                       const float* __restrict__ b1min,
@@ -191,10 +111,7 @@ residual_fused_kernel(const void* __restrict__ counts, int in_code, Band bd,
   sm.row = sm.csm + band_rows(t4);
   sm.ebuf = sm.row + row_stride(G, t4);
   sm.red = sm.ebuf + (size_t)bd.nedge * kOut;
-  sm.hist = reinterpret_cast<int*>(sm.red + 32);
-  sm.prefix = reinterpret_cast<unsigned*>(sm.hist + 256);
-  sm.krem = reinterpret_cast<int*>(sm.prefix + 1);
-  sm.maxkey = reinterpret_cast<unsigned*>(sm.krem + 1);
+  sm.sel = reinterpret_cast<SelectSmem*>(sm.red + 32);
   float* xs = sm.row + t4;  // x[0]
   const int tid = threadIdx.x;
   const int T = blockDim.x;
@@ -229,7 +146,8 @@ residual_fused_kernel(const void* __restrict__ counts, int in_code, Band bd,
     const float hi = b1max[g];
     const float above = x > hi ? x - hi : 0.0f;
     x = x < lo ? x - lo : above;
-    xs[g] = fminf(fmaxf(x, -mct), mct);
+    x = fminf(fmaxf(x, -mct), mct);
+    xs[g] = kBf16 ? round_bf16(x) : x;
   }
   __syncthreads();
 
@@ -243,26 +161,7 @@ residual_fused_kernel(const void* __restrict__ counts, int in_code, Band bd,
     for (int g = tid; g < G; g += T) v += xs[g];
     centre = __fdiv_rn(block_sum(v, sm.red), static_cast<float>(G));
   } else {
-    const int k2 = G / 2;  // upper middle order statistic
-    radix_select_row(xs, G, k2, sm.hist, sm.prefix, sm.krem);
-    const unsigned v2 = *sm.prefix;
-    if (G & 1) {
-      centre = key2f(v2);
-    } else {
-      // lower middle: the largest key below v2, unless v2 repeats there
-      if (tid == 0) *sm.maxkey = 0u;
-      __syncthreads();
-      unsigned m = 0u;
-      for (int g = tid; g < G; g += T) {
-        const unsigned key = f2key(xs[g]);
-        if (key < v2 && key > m) m = key;
-      }
-      m = __reduce_max_sync(0xFFFFFFFFu, m);
-      if ((tid & 31) == 0) atomicMax(sm.maxkey, m);
-      __syncthreads();
-      const unsigned v1 = *sm.krem > 0 ? v2 : *sm.maxkey;
-      centre = __fmul_rn(__fadd_rn(key2f(v1), key2f(v2)), 0.5f);
-    }
+    centre = block_row_median(xs, G, sm.sel);
   }
 
   // 6. stage-2 bounds, exp2, store (and the denoised copy)
@@ -289,10 +188,11 @@ template <typename OutT>
 cudaError_t launch_residual(const void* counts, int in_code, const Band& bd,
                             const float* b1min, const float* b1max,
                             const float* b2min, const float* b2max, float nf,
-                            float mct, int center_mean, void* out,
+                            float mct, int center_mean, int bf16, void* out,
                             const float* noise, float* denoised, int C, int G,
                             int t4, size_t smem, cudaStream_t stream) {
-  auto kern = residual_fused_kernel<OutT>;
+  auto kern = bf16 ? residual_fused_kernel<OutT, true>
+                   : residual_fused_kernel<OutT, false>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return e;
@@ -305,6 +205,8 @@ cudaError_t launch_residual(const void* counts, int in_code, const Band& bd,
 }  // namespace icnv
 
 // in_code: icnv::InCode; out_code: 0 f32, 1 f16, 2 bf16.
+// bf16: round x to bf16 before the smooth (band4 / common must then hold
+// bf16-rounded weights).
 // noise: device [2] (mean_ref, spread) and denoised: [C, G] f32, or both null.
 // band4 / common / slot / edges / nedge: the band as struct Band of
 // band_smooth.cuh; t4: the halfband rounded up to a multiple of 4.
@@ -315,7 +217,8 @@ extern "C" int ic_residual_fused(const void* counts, int in_code,
                                  const float* b1min,
                                  const float* b1max, const float* b2min,
                                  const float* b2max, float nf, float mct,
-                                 int center_mean, void* out, int out_code,
+                                 int center_mean, int bf16, void* out,
+                                 int out_code,
                                  const float* noise, float* denoised, int C,
                                  int G, int t4, void* stream) {
   using namespace icnv;
@@ -338,18 +241,18 @@ extern "C" int ic_residual_fused(const void* counts, int in_code,
   switch (out_code) {
     case 1:
       e = launch_residual<__half>(counts, in_code, bd, b1min, b1max, b2min,
-                                  b2max, nf, mct, center_mean, out, noise,
+                                  b2max, nf, mct, center_mean, bf16, out, noise,
                                   denoised, C, G, t4, smem, s);
       break;
     case 2:
       e = launch_residual<__nv_bfloat16>(counts, in_code, bd, b1min, b1max,
                                          b2min, b2max, nf, mct, center_mean,
-                                         out, noise, denoised, C, G, t4, smem,
-                                         s);
+                                         bf16, out, noise, denoised, C, G, t4,
+                                         smem, s);
       break;
     default:
       e = launch_residual<float>(counts, in_code, bd, b1min, b1max, b2min,
-                                 b2max, nf, mct, center_mean, out, noise,
+                                 b2max, nf, mct, center_mean, bf16, out, noise,
                                  denoised, C, G, t4, smem, s);
       break;
   }

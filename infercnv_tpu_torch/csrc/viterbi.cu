@@ -10,7 +10,8 @@
 //             previous segment's argmax in backpointer row 0
 //   backtrace from the argmax at the last valid position; positions at or
 //             past lens[b] repeat that state
-// and writes 1-based int8 states.
+// and writes 1-based int8 states.  Built for the two models of the
+// reference: i6 (S = 6) and i3 (S = 3, R/inferCNV_i3HMM.R).
 //
 // What bounds it on the H100: the recursion is sequential along L, so one
 // thread carries one sequence and the card is filled only by the batch.  In
@@ -166,7 +167,7 @@ extern "C" int ic_viterbi(const float* x, const int* lens, const float* sigma,
                           const float* means, const float* log_delta,
                           float log_diag, float log_off, void* stream) {
   using namespace icnv;
-  if (B < 0 || L <= 0 || S != 6)  // the i6 model (S = 3 would need <3>)
+  if (B < 0 || L <= 0 || (S != 3 && S != 6))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
   ViterbiParams p{};
@@ -174,7 +175,9 @@ extern "C" int ic_viterbi(const float* x, const int* lens, const float* sigma,
   std::memcpy(p.log_delta, log_delta, sizeof(float) * S);
   p.log_diag = log_diag;
   p.log_off = log_off;
-  return static_cast<int>(launch_viterbi<6>(x, lens, sigma, bnd, bp, out, B,
-                                            L, p,
-                                            static_cast<cudaStream_t>(stream)));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      S == 3 ? launch_viterbi<3>(x, lens, sigma, bnd, bp, out, B, L, p, s)
+             : launch_viterbi<6>(x, lens, sigma, bnd, bp, out, B, L, p, s);
+  return static_cast<int>(e);
 }

@@ -34,9 +34,13 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "ic_error_string": ([_I], ctypes.c_char_p),
-    "ic_smooth_banded": ([_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P], _I),
+    "ic_max_smem_optin": ([_P], _I),
+    "ic_smooth_banded": ([_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P], _I),
+    "ic_smooth_general": ([_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P], _I),
     "ic_residual_fused": ([_P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _F, _F,
-                           _I, _P, _I, _P, _P, _I, _I, _I, _P], _I),
+                           _I, _I, _P, _I, _P, _P, _I, _I, _I, _P], _I),
+    "ic_row_median": ([_P, _I, _I, _I, _P, _P], _I),
+    "ic_median_center_residual": ([_P, _I, _P, _P, _P, _I, _P, _I, _I, _P], _I),
     "ic_viterbi": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _F, _F, _P],
                    _I),
 }
@@ -122,6 +126,15 @@ def check(rc: int, what: str) -> None:
     if rc:
         msg = library().ic_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def max_smem_optin(device: torch.device) -> int:
+    """The shared memory a block may opt in to on a CUDA device, in bytes
+    (the limit every row kernel checks itself against)."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        check(library().ic_max_smem_optin(ctypes.byref(out)), "max_smem_optin")
+    return out.value
 
 
 def stream_of(t: torch.Tensor) -> ctypes.c_void_p:

@@ -13,7 +13,10 @@ infercnv_tpu/parallel/engine.py:252-292):
 Bounds are per-gene rows: ``b*min == b*max == mean`` reproduces the
 ``ref_subtract_use_bounds=False`` configuration exactly.  Given the denoise
 bounds, the pass also returns the denoised residual (``denoise``), which the
-kernel writes in the same pass.
+kernel writes in the same pass.  Given bf16 weights
+(``BandWeights(bf16=True)``), the smooth's operands are rounded to bf16 and
+summed in f32: the reference kernel's ``bf16`` flag
+(infercnv_tpu/ops/residual_fused.py:138-143, ``matmul_dtype="bfloat16"``).
 """
 
 from __future__ import annotations
@@ -23,11 +26,17 @@ from typing import Optional
 import torch
 
 from infercnv_tpu_torch.ops import _build
-from infercnv_tpu_torch.ops.median import row_median
+from infercnv_tpu_torch.ops.median import row_median_plain
 from infercnv_tpu_torch.ops.smoothing import BandWeights, apply_banded_plain
 
-#: launches of the CUDA kernel (the plain version does not count)
+#: launches of the CUDA kernel (the plain version does not count), with f32
+#: weights and with bf16 ones (the reference's bf16 flag)
 LAUNCHES = 0
+LAUNCHES_BF16 = 0
+
+#: shared memory of a block beyond the smooth's (residual_smem_bytes of
+#: csrc/residual_fused.cu): 32 block sums and the median select's SelectSmem
+_SMEM_EXTRA = 4 * 32 + 4 * 256 + 3 * 4
 
 _IN_CODES = {torch.float32: 0, torch.uint16: 1, torch.int16: 2,
              torch.int32: 3, torch.uint32: 4}
@@ -60,6 +69,12 @@ def denoise(resid: torch.Tensor, noise_bounds: torch.Tensor) -> torch.Tensor:
     return torch.where(inside, mean_ref, resid)
 
 
+def fits(w: BandWeights, smem_optin: int) -> bool:
+    """Whether the kernel takes this band and row: one block holds the
+    whole zero-padded row and its smooth's buffers in shared memory."""
+    return w.row_kernel_fits(_SMEM_EXTRA, smem_optin)
+
+
 def residual_fused_plain(counts: torch.Tensor, w: BandWeights,
                          b1min, b1max, b2min, b2max, norm_factor: float,
                          mct: float = 3.0, center_mean: bool = False,
@@ -75,7 +90,7 @@ def residual_fused_plain(counts: torch.Tensor, w: BandWeights,
     if center_mean:
         centre = y.sum(dim=1, keepdim=True) / float(w.num_genes)
     else:
-        centre = row_median(y)[:, None]
+        centre = row_median_plain(y)[:, None]
     resid = torch.exp2(where_bounds(y - centre, b2min, b2max))
     if noise_bounds is not None:
         return resid, denoise(resid, noise_bounds)
@@ -93,13 +108,14 @@ def residual_fused(counts: torch.Tensor, w: BandWeights,
     out_dtype (f32, f16 or bf16; every intermediate stays f32, so a narrow
     output equals the cast of the f32 one).  b*: [G] f32 bound rows.  With
     noise_bounds ([2] f32: mean_ref, spread; f32 output only) it returns
-    (residual, denoise(residual, noise_bounds)).  CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+    (residual, denoise(residual, noise_bounds)).  With bf16 weights the
+    smooth rounds its operands to bf16.  CPU tensors take the plain version;
+    CUDA tensors launch the kernel, which needs fits(w, ...)."""
     if counts.device.type == "cpu":
         return residual_fused_plain(counts, w, b1min, b1max, b2min, b2max,
                                     norm_factor, mct, center_mean, out_dtype,
                                     noise_bounds)
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_BF16
     if counts.dtype not in _IN_CODES:
         raise ValueError(f"residual_fused: counts dtype {counts.dtype} not in "
                          f"{list(_IN_CODES)}")
@@ -129,10 +145,14 @@ def residual_fused(counts: torch.Tensor, w: BandWeights,
         rc = lib.ic_residual_fused(
             _build.ptr(counts), _IN_CODES[counts.dtype], *w.kernel_args(),
             *(_build.ptr(b) for b in bounds), float(norm_factor), float(mct),
-            int(center_mean), _build.ptr(out), _OUT_CODES[out_dtype],
+            int(center_mean), int(w.bf16), _build.ptr(out),
+            _OUT_CODES[out_dtype],
             None if noise is None else _build.ptr(noise),
             None if denoised is None else _build.ptr(denoised),
             counts.shape[0], G, w.halfband4, _build.stream_of(counts))
     _build.check(rc, "residual_fused")
-    LAUNCHES += 1
+    if w.bf16:
+        LAUNCHES_BF16 += 1
+    else:
+        LAUNCHES += 1
     return out if denoised is None else (out, denoised)

@@ -3,8 +3,9 @@
 Counterpart of infercnv_tpu/ops/viterbi_pallas.py.  ``viterbi`` is the
 wrapper of the CUDA kernel ``csrc/viterbi.cu``, which replaces the TPU
 kernel ``_viterbi_kernel`` (``_viterbi_pallas_call`` / ``viterbi_pallas``,
-lines 77-271); ``viterbi_plain`` is the same recursion in PyTorch, a Python
-loop over the sequence axis vectorised over the batch.
+lines 77-271), for the i6 (S = 6) and i3 (S = 3) models; ``viterbi_plain``
+is the same recursion in PyTorch, a Python loop over the sequence axis
+vectorised over the batch.
 
 The transitions are uniform (diagonal ``1-(S-1)t``, off-diagonal ``t``;
 reference .get_HMM R/inferCNV_HMM.R:230-265), so a forward step needs only
@@ -142,8 +143,9 @@ def viterbi(x: torch.Tensor, lengths: torch.Tensor, sigma: torch.Tensor,
     means = np.asarray(means, np.float32).reshape(-1)
     log_delta = np.asarray(log_delta, np.float32).reshape(-1)
     S = means.shape[0]
-    if S != 6:
-        raise ValueError(f"viterbi: the CUDA kernel takes the 6-state model, got S={S}")
+    if S not in (3, 6):
+        raise ValueError(f"viterbi: the CUDA kernel takes the i3 or i6 model "
+                         f"(S = 3 or 6), got S={S}")
     if x.dtype != torch.float32 or x.dim() != 2:
         raise ValueError(f"viterbi: x must be f32 [B, L], got {x.dtype} {tuple(x.shape)}")
     B, L = x.shape

@@ -1,4 +1,4 @@
-"""The default-configuration streaming CNV engine, in PyTorch.
+"""The streaming CNV engine, in PyTorch.
 
 Counterpart of infercnv_tpu/parallel/engine.py (lines 38-549, 552-559),
 without the ``mesh`` path (multi-GPU is not ported yet).  Cells flow through
@@ -8,15 +8,42 @@ in fixed-size chunks; reference statistics are computed once and reused:
      stages and the pooled denoise bounds (one-shot, or streamed in three
      passes above 2.5e8 reference elements);
   2. ``subcluster_chunk`` / ``transform_chunk`` / ``full_chunk``: the
-     residual of a chunk of cells (one CUDA kernel: ops/residual_fused.py),
-     then denoise and per-subcluster sums, or the per-cell Viterbi;
-  3. ``viterbi_group_means``: the 6-state Viterbi on subcluster mean rows
+     residual of a chunk of cells, then denoise and per-subcluster sums, or
+     the per-cell Viterbi;
+  3. ``viterbi_group_means``: the i6 or i3 Viterbi on subcluster mean rows
      (ops/viterbi_pack.py over the CUDA kernel of ops/viterbi_kernel.py).
+
+Every option of the reference's ``EngineConfig`` runs: pyramidal, runmeans
+and coordinate smoothing (``smooth_method="coordinates"``, a bp window), a
+bf16 smooth (``matmul_dtype="bfloat16"``), median or mean centring, with or
+without bounds.  The residual takes one of three routes, chosen when the
+engine is built from the smoothing operator and the card's shared memory,
+never by trying a launch (``residual_route``):
+
+  * ``fused``: one CUDA kernel (ops/residual_fused.py) for the whole pass,
+    when the band has one side tile (halfband <= 128) and a zero-padded row
+    with its smooth's buffers fits in a block's shared memory;
+  * ``wide_genome``: otherwise, with halfband <= 64 and median centring:
+    normalise, log, bounds and clip as PyTorch ops, the tiled smooth
+    (ops/smoothing.py apply_banded_general), and the median-centred tail
+    kernel (ops/median.py median_center_residual);
+  * ``wide_band``: every other case (coordinate smoothing, halfbands over
+    64 that the fused kernel cannot take, mean centring): the same first
+    ops and smooth, then the row median kernel (or the row mean), the
+    stage-2 bounds and exp2 as PyTorch ops.
+
+On an H100 (227 KB a block) a pyramidal band of 101 genes fits the fused
+kernel up to ~56k genes.  That threshold is the card's own: the reference's
+TPU threshold is its VMEM budget (residual_fused._pick_tile_r), and the
+results are the same on either route.  ``ref_stats`` smooths with the
+one-row kernel (halfband <= 64 and the row fits), else with the tiled one.
 
 Every entry point runs on the engine's device: CUDA unless the caller
 passes ``device="cpu"``, where each kernel wrapper runs its plain PyTorch
-version.  Float32 products stay full f32 (the group sums are torch.matmul
-outside any kernel, as the reference leaves them to XLA).
+version; the CPU plans its routes with the H100's shared memory
+(``SMEM_OPTIN_BYTES``), so that it takes the card's routes.  Float32
+products stay full f32 (the group sums are torch.matmul outside any kernel,
+as the reference leaves them to XLA).
 """
 
 from __future__ import annotations
@@ -30,15 +57,23 @@ import torch
 from infercnv_tpu_torch.core.genome import GeneOrder
 from infercnv_tpu_torch.device import DeviceLike, resolve_device
 from infercnv_tpu_torch.models.hmm import HMMParams
-from infercnv_tpu_torch.ops.layout import smoothing_operator
-from infercnv_tpu_torch.ops.median import row_median
+from infercnv_tpu_torch.ops import _build, residual_fused as _fused
+from infercnv_tpu_torch.ops.layout import (
+    coordinate_smoothing_operator,
+    smoothing_operator,
+)
+from infercnv_tpu_torch.ops.median import median_center_residual, row_median
 from infercnv_tpu_torch.ops.residual_fused import (
     counts_to_f32,
     denoise,
     residual_fused,
     where_bounds,
 )
-from infercnv_tpu_torch.ops.smoothing import BandWeights, apply_banded
+from infercnv_tpu_torch.ops.smoothing import (
+    BandWeights,
+    apply_banded,
+    apply_banded_general,
+)
 from infercnv_tpu_torch.ops.viterbi_pack import PackedLayout, viterbi_packed
 
 _OUT_DTYPES = {"float32": torch.float32, "float16": torch.float16,
@@ -46,6 +81,9 @@ _OUT_DTYPES = {"float32": torch.float32, "float16": torch.float16,
 _NARROW_COUNTS = (torch.uint16, torch.int16, torch.int32, torch.uint32)
 #: above this many reference elements the statistics stream over chunks
 _STREAM_REF_ELEMENTS = 250_000_000
+#: shared memory a block may opt in to on an H100 (227 KB): the capacity the
+#: engine plans its routes with on the CPU; a CUDA device reports its own
+SMEM_OPTIN_BYTES = 232_448
 
 Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -54,7 +92,10 @@ Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 class EngineConfig:
     """Same fields and defaults as the reference's EngineConfig."""
 
+    #: genes in the window, or base pairs for coordinate smoothing
     window_length: int = 101
+    #: "pyramidinal" | "runmeans" | "coordinates" (a bp window, as run()
+    #: sets it with the i3 HMM; the wide-band route)
     smooth_method: str = "pyramidinal"
     max_centered_threshold: float = 3.0
     ref_subtract_use_bounds: bool = True
@@ -62,7 +103,11 @@ class EngineConfig:
     denoise: bool = True
     sd_amplifier: float = 1.5
     hmm_t: float = 1e-6
-    #: "bfloat16" (the reference's opt-in bf16 smooth) is not ported yet
+    #: "bfloat16" rounds the smooth's operands to bf16 (f32 sums; each
+    #: product within 2^-7 of itself) where the reference's Pallas engine
+    #: does: in the fused residual, and in the one-row smooth of ref_stats
+    #: and the wide-genome route (halfband <= 64); the f32 default keeps
+    #: the 1e-5 parity
     matmul_dtype: str = "float32"
     #: radix digit width of the reference's median select; the median is
     #: exact for every width, and the CUDA kernel always selects 8 bits a pass
@@ -78,14 +123,8 @@ class CnvEngine:
     def __init__(self, gene_order: GeneOrder, hmm: HMMParams,
                  config: EngineConfig = EngineConfig(),
                  device: DeviceLike = None):
-        if config.matmul_dtype != "float32":
-            raise NotImplementedError(
-                "matmul_dtype='bfloat16' (the bf16 smooth, TPU kernel 4 and the "
-                "fused kernel's bf16 flag) is not ported yet: ROADMAP.md queue B")
-        if config.smooth_method == "coordinates":
-            raise NotImplementedError(
-                "smooth_method='coordinates' needs the general-band smooth "
-                "(TPU kernel 5), not ported yet: ROADMAP.md queue B")
+        if config.matmul_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unsupported matmul_dtype {config.matmul_dtype}")
         if 32 % config.median_radix_bits:
             raise ValueError(
                 f"median_radix_bits must divide 32, got {config.median_radix_bits}")
@@ -95,10 +134,38 @@ class CnvEngine:
         self.gene_order = gene_order
         self.config = config
         self.hmm = hmm
-        op = smoothing_operator(
-            gene_order, config.window_length,
-            "runmeans" if config.smooth_method == "runmeans" else "pyramidinal")
+        if config.smooth_method == "coordinates":
+            # a bp window (run() remaps gene-unit windows to 10 Mbp;
+            # reference R/inferCNV_ops.R:357-361)
+            op = coordinate_smoothing_operator(gene_order, config.window_length)
+        else:
+            op = smoothing_operator(
+                gene_order, config.window_length,
+                "runmeans" if config.smooth_method == "runmeans" else "pyramidinal")
         self.weights = BandWeights.from_operator(op, self.device)
+        # bf16 weights where the reference rounds: its fused kernel takes the
+        # flag whenever it runs (side_tiles == 1), its K=256 smooth only for
+        # halfband <= 64 (engine.py:112-114, :202-205)
+        bf16 = config.matmul_dtype == "bfloat16"
+        w_bf16 = (BandWeights.from_operator(op, self.device, bf16=True)
+                  if bf16 and op.side_tiles == 1 else None)
+        self._w_fused = w_bf16 if w_bf16 is not None else self.weights
+        self._w_smooth = (w_bf16 if w_bf16 is not None and op.halfband <= 64
+                          else self.weights)
+        smem = (_build.max_smem_optin(self.device)
+                if self.device.type == "cuda" else SMEM_OPTIN_BYTES)
+        #: the smooth of ref_stats and of the unfused routes: "row" (one row
+        #: a block, smooth_banded.cu) or "general" (smooth_general.cu)
+        self.smooth_route = ("row" if op.side_tiles == 1 and op.halfband <= 64
+                             and self._w_smooth.row_kernel_fits(0, smem)
+                             else "general")
+        #: the residual's route: "fused", "wide_genome" or "wide_band"
+        if op.side_tiles == 1 and _fused.fits(self._w_fused, smem):
+            self.residual_route = "fused"
+        elif op.halfband <= 64 and config.center_method == "median":
+            self.residual_route = "wide_genome"
+        else:
+            self.residual_route = "wide_band"
         self._layout = PackedLayout.from_gene_order(gene_order)
         self._means = np.asarray(hmm.means, np.float32)
         self._sigma = float(np.float32(np.median(hmm.sds)))
@@ -125,18 +192,28 @@ class CnvEngine:
         cs = c.sum(dim=1, keepdim=True)
         return torch.log2(c / cs * nf + 1.0)
 
-    def _stage2_x(self, counts, nf, ref_means_log):
+    def _smooth(self, x):
+        if self.smooth_route == "row":
+            return apply_banded(x, self._w_smooth)
+        return apply_banded_general(x, self._w_smooth)
+
+    def _clipped_x(self, counts, nf, ref_means_log):
+        """Normalise + log2, stage-1 bounds, clip: the first ops of every
+        unfused residual (reference engine.py:252-255)."""
         x = self._subtract(self._log_norm(counts, nf), ref_means_log)
         mct = self.config.max_centered_threshold
-        x = torch.clamp(x, -mct, mct)
-        return self._centre(apply_banded(x, self.weights))
+        return torch.clamp(x, -mct, mct)
+
+    def _stage2_x(self, counts, nf, ref_means_log):
+        return self._centre(self._smooth(self._clipped_x(counts, nf,
+                                                         ref_means_log)))
 
     def _residual(self, counts, norm_factor, ref_means_log, ref_means_resid,
                   out_dtype: torch.dtype = torch.float32, noise_bounds=None):
-        """The whole residual pass as one kernel; the where-form bounds with
+        """The residual on the engine's route.  The where-form bounds with
         min == max == mean equal ``x - mean`` exactly, so the no-bounds
-        configuration takes the same kernel.  With noise_bounds it returns
-        (residual, denoised residual), both from the one pass."""
+        configuration takes the same kernels.  With noise_bounds it returns
+        (residual, denoised residual)."""
         cfg = self.config
         if cfg.ref_subtract_use_bounds:
             b1min, b1max = ref_means_log.amin(dim=0), ref_means_log.amax(dim=0)
@@ -144,12 +221,25 @@ class CnvEngine:
         else:
             b1min = b1max = ref_means_log.mean(dim=0)
             b2min = b2max = ref_means_resid.mean(dim=0)
-        return residual_fused(
-            counts, self.weights, b1min.contiguous(), b1max.contiguous(),
-            b2min.contiguous(), b2max.contiguous(), norm_factor,
-            mct=cfg.max_centered_threshold,
-            center_mean=(cfg.center_method != "median"), out_dtype=out_dtype,
-            noise_bounds=noise_bounds)
+        if self.residual_route == "fused":
+            return residual_fused(
+                counts, self._w_fused, b1min.contiguous(), b1max.contiguous(),
+                b2min.contiguous(), b2max.contiguous(), norm_factor,
+                mct=cfg.max_centered_threshold,
+                center_mean=(cfg.center_method != "median"),
+                out_dtype=out_dtype, noise_bounds=noise_bounds)
+        # a Python float multiplies as f32, without a host-to-device copy
+        # (a blocking copy would stall the stream once a chunk)
+        y = self._smooth(self._clipped_x(counts, float(norm_factor),
+                                         ref_means_log))
+        if self.residual_route == "wide_genome":
+            resid = median_center_residual(y, b2min.contiguous(),
+                                           b2max.contiguous(), y.shape[1])
+        else:
+            resid = torch.exp2(where_bounds(self._centre(y), b2min, b2max))
+        if noise_bounds is not None:
+            return resid, denoise(resid, noise_bounds)
+        return resid.to(out_dtype)
 
     def _residual_and_final(self, counts, norm_factor, ref_means_log,
                             ref_means_resid, noise_bounds):
@@ -185,7 +275,7 @@ class CnvEngine:
         ref_means_log = (group_onehot @ xlog) / gn
         x = self._subtract(xlog, ref_means_log)
         mct = self.config.max_centered_threshold
-        x = self._centre(apply_banded(torch.clamp(x, -mct, mct), self.weights))
+        x = self._centre(self._smooth(torch.clamp(x, -mct, mct)))
         ref_means_resid = (group_onehot @ x) / gn
         # denoise bounds on the pooled reference residuals (:2302-2346)
         final = torch.exp2(self._subtract(x, ref_means_resid))

@@ -249,12 +249,3 @@ def test_interop_engine_from_numpy(small):
     stats = ref_stats_from_numpy(np.zeros((2, 3)), np.zeros((2, 3)), np.zeros(2),
                                  device="cpu")
     assert all(s.dtype == torch.float32 and s.device.type == "cpu" for s in stats)
-
-
-@pytest.mark.parametrize("cfg", [dict(matmul_dtype="bfloat16"),
-                                 dict(smooth_method="coordinates")])
-def test_unported_options_raise(cfg):
-    _, tgo = gene_orders([50, 50])
-    _, th = hmms()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CnvEngine(tgo, th, EngineConfig(**cfg), device="cpu")

@@ -15,6 +15,7 @@ import torch
 
 import infercnv_tpu_torch
 from infercnv_tpu_torch.ops import _build
+from infercnv_tpu_torch.ops import median as tmed
 from infercnv_tpu_torch.ops import residual_fused as tres
 from infercnv_tpu_torch.ops import smoothing as tsmooth
 from infercnv_tpu_torch.ops import viterbi_kernel as tvit
@@ -84,15 +85,26 @@ def test_cpu_wrappers_build_nothing():
     from infercnv_tpu_torch.ops.layout import smoothing_operator
 
     w = tsmooth.BandWeights.from_operator(smoothing_operator(tgo, 11), "cpu")
+    wb = tsmooth.BandWeights.from_operator(smoothing_operator(tgo, 11), "cpu",
+                                           bf16=True)
     x = torch.ones((3, 120))
-    counts = {m: getattr(m, "LAUNCHES") for m in (tres, tsmooth, tvit)}
+    counters = [(m, name) for m in (tres, tsmooth, tvit, tmed)
+                for name in dir(m) if name.startswith("LAUNCHES")]
+    counts = {c: getattr(*c) for c in counters}
     tsmooth.apply_banded(x, w)
+    tsmooth.apply_banded(x, wb)
+    tsmooth.apply_banded_general(x, w)
     z = torch.zeros(120)
     tres.residual_fused(x, w, z, z, z, z, 100.0)
-    tvit.viterbi(x, torch.full((3,), 120), torch.ones(3),
-                 torch.zeros((3, 120), dtype=torch.int8),
-                 np.arange(6) / 2.0, np.zeros(6), -1e-6, -13.8)
-    assert {m: getattr(m, "LAUNCHES") for m in counts} == counts
+    tres.residual_fused(x, wb, z, z, z, z, 100.0)
+    tmed.row_median(x)
+    tmed.median_center_residual(x, z, z, 120)
+    for S in (3, 6):
+        tvit.viterbi(x, torch.full((3,), 120), torch.ones(3),
+                     torch.zeros((3, 120), dtype=torch.int8),
+                     np.arange(S) / 2.0, np.zeros(S), -1e-6, -13.8)
+    assert len(counts) == 8
+    assert {c: getattr(*c) for c in counters} == counts
     assert _build._library is None
 
 
@@ -122,5 +134,6 @@ def test_chip_smoke_fails_without_cuda():
 def test_sources_digest_covers_every_kernel_source():
     names = {p.name for p in _build.CSRC.glob("*.cu*")}
     assert {"residual_fused.cu", "smooth_banded.cu", "viterbi.cu",
-            "band_smooth.cuh"} <= names
+            "band_smooth.cuh", "smooth_general.cu", "median.cu",
+            "radix_select.cuh", "common.cu"} <= names
     assert len(_build.sources_digest()) == 64

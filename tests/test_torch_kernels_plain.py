@@ -27,7 +27,8 @@ from infercnv_tpu_torch.ops import viterbi_kernel as tvit
 from infercnv_tpu_torch.ops.median import row_median
 from infercnv_tpu_torch.ops.viterbi_pack import get_layout, viterbi_packed
 
-from torch_port_util import MEANS, MEANS_ROUND, SDS, SDS_ROUND, gene_orders, np_
+from torch_port_util import (MEANS, MEANS_ROUND, SDS, SDS_ROUND, gene_orders,
+                             median_cases, np_)
 
 
 def _bits(a):
@@ -38,33 +39,7 @@ def _bits(a):
 # median
 # --------------------------------------------------------------------------
 
-def _median_cases():
-    rng = np.random.default_rng(7)
-    cases = {}
-    for (C, G) in [(4, 9), (5, 10), (17, 131), (40, 256), (3, 2), (6, 1)]:
-        x = rng.normal(size=(C, G)).astype(np.float32) * 10
-        x[0, : G // 2] = -x[0, : G // 2]
-        x[min(1, C - 1)] = 0.0
-        cases[f"normal_{C}x{G}"] = x
-    cases["ties"] = rng.integers(-3, 4, size=(11, 64)).astype(np.float32)
-    inf = rng.normal(size=(8, 20)).astype(np.float32)
-    inf[0, :3] = np.inf
-    inf[1, :12] = -np.inf
-    inf[2, 5] = -np.inf
-    inf[3, :] = np.inf
-    cases["inf"] = inf
-    z = np.zeros((6, 8), np.float32)
-    z[0, :4] = -0.0
-    z[1, :] = -0.0
-    z[2, ::2] = -0.0
-    z[3, :3] = -1.0
-    z[4, :5] = 1.0
-    z[5, 3] = -0.0
-    cases["neg_zero"] = z
-    return cases
-
-
-MEDIAN_CASES = _median_cases()
+MEDIAN_CASES = median_cases()
 
 
 @pytest.mark.parametrize("name", sorted(MEDIAN_CASES))

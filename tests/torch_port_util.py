@@ -53,6 +53,34 @@ def hmms(means=MEANS_ROUND, sds=SDS_ROUND, t=1e-6):
             HMMParams(means=means, sds=sds, t=t))
 
 
+def median_cases() -> dict:
+    """Rows for the exact medians: odd and even widths, an all-zero row,
+    heavy ties, +-inf and -0 (tests/test_kernels_pallas.py:31-48)."""
+    rng = np.random.default_rng(7)
+    cases = {}
+    for (C, G) in [(4, 9), (5, 10), (17, 131), (40, 256), (3, 2), (6, 1)]:
+        x = rng.normal(size=(C, G)).astype(np.float32) * 10
+        x[0, : G // 2] = -x[0, : G // 2]
+        x[min(1, C - 1)] = 0.0
+        cases[f"normal_{C}x{G}"] = x
+    cases["ties"] = rng.integers(-3, 4, size=(11, 64)).astype(np.float32)
+    inf = rng.normal(size=(8, 20)).astype(np.float32)
+    inf[0, :3] = np.inf
+    inf[1, :12] = -np.inf
+    inf[2, 5] = -np.inf
+    inf[3, :] = np.inf
+    cases["inf"] = inf
+    z = np.zeros((6, 8), np.float32)
+    z[0, :4] = -0.0
+    z[1, :] = -0.0
+    z[2, ::2] = -0.0
+    z[3, :3] = -1.0
+    z[4, :5] = 1.0
+    z[5, 3] = -0.0
+    cases["neg_zero"] = z
+    return cases
+
+
 def np_(a) -> np.ndarray:
     """A JAX array or torch tensor as numpy (bf16 widened to f32)."""
     if hasattr(a, "detach"):

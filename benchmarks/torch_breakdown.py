@@ -7,8 +7,10 @@ Same workloads as chip_smoke.py's path phases, from its make_inputs.
 Prints JSON lines:
   residual   main path (8448 genes, 32768-cell u16 chunks, 16 subclusters):
              the fused residual kernel by variant: median vs mean centring
-             (the difference is the radix select), with the denoised
-             second output, and the smooth kernel alone over the same chunk
+             (the difference is the radix select), with and without the
+             denoised second output, and without its smooth; the one-row
+             smooth kernel alone over the same chunk; copy-only baselines
+             over the kernel's bytes (u16 in, one or two f32 stores)
   chunk      the pieces of one main-path subcluster_chunk: residual kernel,
              group-sum matmul, and (for comparison) denoise as separate
              PyTorch ops
@@ -62,6 +64,25 @@ def profile_chunks(engine, counts, nf, ml, mr, noise, onehot) -> dict:
             "device_ms_by_kernel": top}
 
 
+def without_smooth(w):
+    """The band weights w with the fused kernel's smooth emptied (no items,
+    no general genes): the kernel then times everything but its smooth."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    none = np.zeros(0, np.int32)
+    plan = dataclasses.replace(
+        w.plan, items=none, sitems=none, iscale=np.zeros((0, 8), np.float32),
+        sscale=np.zeros((0, 8), np.float32), general=np.zeros((0, 2), np.int32),
+        gtaps=none)
+    row = dict(w.row)
+    row.update({k: torch.as_tensor(getattr(plan, k)).to(w.band.device)
+                for k in ("items", "sitems", "iscale", "sscale", "general", "gtaps")})
+    return dataclasses.replace(w, plan=plan, row=row)
+
+
 def main() -> int:
     import torch
 
@@ -88,10 +109,32 @@ def main() -> int:
     res["mean"] = t(lambda: residual_fused(counts, w, *b, nf, center_mean=True))
     res["median_with_denoised"] = t(lambda: residual_fused(counts, w, *b, nf,
                                                            noise_bounds=noise))
+    res["mean_with_denoised"] = t(lambda: residual_fused(
+        counts, w, *b, nf, center_mean=True, noise_bounds=noise))
+    # the kernel without its smooth, mean centring (the median's first pass
+    # counts the smooth's results, so it has nothing to select without it)
+    bare = without_smooth(w)
+    res["mean_without_smooth"] = t(lambda: residual_fused(
+        counts, bare, *b, nf, center_mean=True))
+    res["mean_with_denoised_without_smooth"] = t(lambda: residual_fused(
+        counts, bare, *b, nf, center_mean=True, noise_bounds=noise))
+    res["row_plan"] = {"items": int(w.plan.items.shape[0]),
+                       "general_genes": int(w.plan.general.shape[0]),
+                       "gap": w.plan.gap, "segments": int(w.plan.seg.shape[0]) - 1}
     x = counts_to_f32(counts)
+    # the one-row smooth kernel (smooth_banded.cu) over the same chunk
     res["smooth_kernel_alone"] = t(lambda: apply_banded(x, w))
     res["copy_1_1GB"] = t(lambda: x.clone())
-    del x
+    # copy-only baselines over the kernel's bytes: the u16 counts read and
+    # converted to f32 (the values are below 2^15, so the int16 view is exact)
+    # and stored once, and twice (the residual and its denoised copy)
+    out = torch.empty_like(x)
+    out2 = torch.empty_like(x)
+    res["copy_u16_to_f32"] = t(lambda: out.copy_(counts.view(torch.int16)))
+    res["copy_u16_to_two_f32"] = t(lambda: (out.copy_(counts.view(torch.int16)),
+                                            out2.copy_(counts.view(torch.int16))))
+    res["copy_bytes_one_store"] = counts.numel() * (2 + 4)
+    del x, out, out2, bare
     print(json.dumps({"phase": "residual", "card": smi, "chunk": cs.CHUNK, **res}), flush=True)
 
     resid = residual_fused(counts, w, *b, nf)

@@ -130,15 +130,15 @@ def bound(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def bench_genome():
-    """bench.py's genome: 8448 genes on 22 chromosomes."""
+def bench_genome(G: int = 8448):
+    """bench.py's genome: 8448 genes (or G) on 22 chromosomes."""
     import numpy as np
 
     from infercnv_tpu_torch.core.genome import GeneOrder
 
     sizes = np.linspace(800, 120, 22).astype(int)
-    sizes = (sizes / sizes.sum() * 8448).astype(int)
-    sizes[0] += 8448 - sizes.sum()
+    sizes = (sizes / sizes.sum() * G).astype(int)
+    sizes[0] += G - sizes.sum()
     G = int(sizes.sum())
     return GeneOrder(names=tuple(f"g{i}" for i in range(G)),
                      chr_names=tuple(f"chr{i + 1}" for i in range(22)),
@@ -366,7 +366,8 @@ def run(dev) -> int:
         row_median_plain)
     from infercnv_tpu_torch.ops.residual_fused import (
         counts_to_f32, denoise, residual_fused, residual_fused_plain)
-    from infercnv_tpu_torch.ops.layout import coordinate_smoothing_operator
+    from infercnv_tpu_torch.ops.layout import (
+        coordinate_smoothing_operator, smoothing_operator)
     from infercnv_tpu_torch.ops.smoothing import (
         BandWeights, apply_banded, apply_banded_general, apply_banded_plain)
     from infercnv_tpu_torch.ops.viterbi_kernel import (
@@ -510,6 +511,27 @@ def run(dev) -> int:
     require(torch.equal(residual_fused(counts_to_f32(small).contiguous(), w, *b1, *b2, nf),
                         rk[torch.float32][:4096]),
             "residual_fused: f32 counts and u16 counts disagree")
+    # awkward shapes: G = 8447 (odd; u16 rows start at odd 2-byte offsets,
+    # so the 16-byte reads need a scalar head and tail), 4133 rows (not a
+    # multiple of the persistent grid), one row, and rows of mostly zero
+    # counts (ties in the select)
+    w7 = BandWeights.from_operator(smoothing_operator(bench_genome(G - 1), 101), dev)
+    b7 = [v[:G - 1].contiguous() for v in (*b1, *b2)]
+    c7 = counts_a[:4133, :G - 1].contiguous()
+    cz = counts_a[:4133].clone()
+    c7[:64, 100:] = 0
+    cz[:64, 100:] = 0
+    awkward = {}
+    for name, cc, ww_, bb in (("G8447_C4133", c7, w7, b7),
+                              ("G8447_C1", c7[:1], w7, b7),
+                              ("G8448_C1", counts_a[:1], w, [*b1, *b2]),
+                              ("G8448_C4133_zero_rows", cz, w, [*b1, *b2])):
+        got, dn = residual_fused(cc, ww_, *bb, nf, noise_bounds=noise)
+        ok, e = close(got, residual_fused_plain(cc, ww_, *bb, nf))
+        require(ok and torch.equal(dn, denoise(got, noise)),
+                f"residual_fused ({name}) differs from its plain version (max {e})")
+        awkward[name] = e
+    del w7, c7, cz, got, dn
     # The main path runs the variant with the denoised second output (its
     # residual equals the f32 one above bit for bit, and the denoised output
     # equals denoise() of it), so the row's time and bound are that
@@ -517,6 +539,7 @@ def run(dev) -> int:
     c_bytes = counts_a.numel() * 2 + w.band.numel() * 4 + 4 * G * 4
     rows["residual_fused"] = dict(
         max_abs_err=err, variants_max_abs_err=variants,
+        awkward_max_abs_err=awkward,
         ms=time_ms(lambda: residual_fused(counts_a, w, *b1, *b2, nf,
                                           noise_bounds=noise)),
         ms_without_denoised=time_ms(lambda: residual_fused(counts_a, w, *b1, *b2, nf)),
@@ -624,11 +647,37 @@ def run(dev) -> int:
                       apply_banded_plain(xc[:4096], wwb))
     require(ok, f"smooth_general (bf16 weights) differs (max {err_b})")
     del wwb
+    # awkward shapes: 1000 rows (not a multiple of the 64-row block) of the
+    # 60,000-gene genome, G = 8447 on the coordinates band (rows not 16-byte
+    # aligned: 4-byte copies), and output rows of stride ldy > G through the
+    # C entry point (the padding must stay untouched)
+    cw7 = BandWeights.from_operator(
+        coordinate_smoothing_operator(human_like_genome(G - 1), COORD_WINDOW), dev)
+    x7 = torch.randn((1013, G - 1), generator=gen, device=dev)
+    g_awkward = {}
+    for name, xx, ww_ in (("G60000_C1000", xw[:1000], ww), ("G8447_C1013", x7, cw7)):
+        ok, e = close(apply_banded_general(xx, ww_), apply_banded_plain(xx, ww_))
+        require(ok, f"smooth_general ({name}) differs from its plain version (max {e})")
+        g_awkward[name] = e
+    xs = xc[:1013]
+    ys = apply_banded_plain(xs, cw)
+    for ldy in (G + 4, G + 5):
+        yp = torch.full((xs.shape[0], ldy), float("inf"), device=dev)
+        with torch.cuda.device(dev):
+            rc = _build.library().ic_smooth_general(
+                *cw.general_args(xs), _build.ptr(yp), ldy, xs.shape[0], G,
+                cw.halfband4, _build.stream_of(xs))
+        _build.check(rc, "smooth_general")
+        ok, e = close(yp[:, :G], ys)
+        require(ok and bool(torch.isinf(yp[:, G:]).all()),
+                f"smooth_general (ldy {ldy}) differs or wrote its padding (max {e})")
+        g_awkward[f"ldy_{ldy}"] = e
+    del cw7, x7, xs, ys, yp
     nnz_c = int((cw.band != 0).sum())
     Wc = cw.dense()
     rows["smooth_general"] = dict(
         max_abs_err=err, max_abs_err_wide_genome=err_w,
-        max_abs_err_bf16_weights=err_b,
+        max_abs_err_bf16_weights=err_b, awkward_max_abs_err=g_awkward,
         ms=time_ms(lambda: apply_banded_general(xc, cw)),
         ms_wide_genome=time_ms(lambda: apply_banded_general(xw, ww)),
         plain_ms=time_ms(lambda: apply_banded_plain(xc, cw), reps=3),

@@ -1,7 +1,10 @@
 // Shared device routines of the row kernels (smooth_banded.cu and
-// residual_fused.cu): the banded smooth along the gene axis and a block-wide
-// row sum.  Both kernels include this one header, so the smooth they apply
-// cannot drift apart.
+// residual_fused.cu): the band's layout, bf16 rounding and a block-wide row
+// sum, and the one-row banded smooth of smooth_banded.cu (band_smooth_row).
+// residual_fused.cu keeps its own register-blocked smooth on a swizzled row
+// (8 outputs a thread); the one-row kernels of the reference path (kernels 3
+// and 4, ~0.08 ms a launch, once a run) keep the 4-output routine below.
+// Both apply the same band and are held to the same plain version.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -15,11 +15,12 @@
 // What bounds them on the H100: the bytes.  The median of a 32768 x 8448
 // f32 chunk reads 1.1 GB (0.33 ms at 3.35 TB/s) for ~4 compares a value;
 // the tail on 8192 x 60000 reads and writes 1.97 GB each (1.2 ms).  The
-// select needs five sweeps of a row (four radix passes and, for an even
-// count, the lower middle), so a row that fits in shared memory is staged
-// there once and device memory sees it once.  A row that does not fit
-// (60000 genes are 240 KB, above the 227 KB a block may hold) is swept from
-// device memory on every pass, through L2 where it still sits.
+// select needs three sweeps of a row (its 11/11/10-bit passes; the lower
+// middle of an even count is folded into the last), so a row that fits in
+// shared memory is staged there once and device memory sees it once.  A row
+// that does not fit (60000 genes are 240 KB, above the 227 KB a block may
+// hold) is swept from device memory on every pass, through L2 where it still
+// sits.
 #include <cuda_runtime.h>
 
 #include "radix_select.cuh"
@@ -45,7 +46,7 @@ row_median_kernel(const float* __restrict__ x, int ld, int n, int staged,
   SelectSmem* sel = reinterpret_cast<SelectSmem*>(smem4);
   float* buf = reinterpret_cast<float*>(sel + 1);
   const float* row = block_row(x + (size_t)blockIdx.x * ld, n, buf, staged);
-  const float m = block_row_median(row, n, sel);
+  const float m = block_row_median(PlainRow{row, n}, n, sel);
   if (threadIdx.x == 0) med[blockIdx.x] = m;
 }
 
@@ -61,7 +62,7 @@ median_epilogue_kernel(const float* __restrict__ y, int ld, int n, int staged,
   SelectSmem* sel = reinterpret_cast<SelectSmem*>(smem4);
   float* buf = reinterpret_cast<float*>(sel + 1);
   const float* row = block_row(y + (size_t)blockIdx.x * ld, n, buf, staged);
-  const float m = block_row_median(row, n, sel);
+  const float m = block_row_median(PlainRow{row, n}, n, sel);
   if (med != nullptr && threadIdx.x == 0) med[blockIdx.x] = m;
   float* dst = out + (size_t)blockIdx.x * ldo;
   for (int g = threadIdx.x; g < n; g += blockDim.x) {

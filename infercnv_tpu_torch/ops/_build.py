@@ -36,8 +36,10 @@ _SIGNATURES = {
     "ic_error_string": ([_I], ctypes.c_char_p),
     "ic_max_smem_optin": ([_P], _I),
     "ic_smooth_banded": ([_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P], _I),
-    "ic_smooth_general": ([_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P], _I),
-    "ic_residual_fused": ([_P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _F, _F,
+    "ic_smooth_general": ([_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
+                          _I),
+    "ic_residual_fused": ([_P, _I, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _I,
+                           _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _F, _F,
                            _I, _I, _P, _I, _P, _P, _I, _I, _I, _P], _I),
     "ic_row_median": ([_P, _I, _I, _I, _P, _P], _I),
     "ic_median_center_residual": ([_P, _I, _P, _P, _P, _I, _P, _I, _I, _P], _I),

@@ -34,9 +34,12 @@ from infercnv_tpu_torch.ops.smoothing import BandWeights, apply_banded_plain
 LAUNCHES = 0
 LAUNCHES_BF16 = 0
 
-#: shared memory of a block beyond the smooth's (residual_smem_bytes of
-#: csrc/residual_fused.cu): 32 block sums and the median select's SelectSmem
-_SMEM_EXTRA = 4 * 32 + 4 * 256 + 3 * 4
+#: the median select's shared memory (sizeof(SelectSmem) of
+#: csrc/radix_select.cuh: 2048 histogram bins, 32 warp sums, 4 words)
+_SELECT_BYTES = 4 * (2048 + 32 + 4)
+#: threads a block and outputs a thread in the kernel's smooth (kResThreads,
+#: kGroup): a round of the in-place smooth must span the halfband
+_THREADS, _GROUP = 256, 8
 
 _IN_CODES = {torch.float32: 0, torch.uint16: 1, torch.int16: 2,
              torch.int32: 3, torch.uint32: 4}
@@ -69,10 +72,25 @@ def denoise(resid: torch.Tensor, noise_bounds: torch.Tensor) -> torch.Tensor:
     return torch.where(inside, mean_ref, resid)
 
 
+def smem_bytes(w: BandWeights) -> int:
+    """Shared memory of a block of the kernel (residual_smem_bytes of
+    csrc/residual_fused.cu): the common column and its f32 form, the
+    swizzled row with its gaps and pads, the scaled items' results (bf16)
+    and the general genes', the segment starts, the segment of each group
+    of 8 genes (2 bytes), 32 block sums and the select."""
+    p, t4, G = w.plan, w.halfband4, w.num_genes
+    row = ((p.span + 7) // 8 * 8 + 2 * t4 + 16 + 63) // 64 * 64
+    extra = 8 * p.sitems.shape[0] + p.general.shape[0]
+    return (4 * (2 * (2 * t4 + 4) + row + extra + p.seg.shape[0]
+                 + (G + 15) // 16 + 32)
+            + _SELECT_BYTES)
+
+
 def fits(w: BandWeights, smem_optin: int) -> bool:
     """Whether the kernel takes this band and row: one block holds the
     whole zero-padded row and its smooth's buffers in shared memory."""
-    return w.row_kernel_fits(_SMEM_EXTRA, smem_optin)
+    return (w.halfband4 + 8 <= _THREADS * _GROUP
+            and smem_bytes(w) <= smem_optin)
 
 
 def residual_fused_plain(counts: torch.Tensor, w: BandWeights,
@@ -129,8 +147,8 @@ def residual_fused(counts: torch.Tensor, w: BandWeights,
     for b in bounds:
         if b.dtype != torch.float32 or b.shape[0] != G:
             raise ValueError("residual_fused: bounds must be f32 rows of G")
-    _build.check_inputs("residual_fused", counts, w.band4, w.common, w.slot,
-                        w.edges, *bounds)
+    _build.check_inputs("residual_fused", counts, w.band4, w.common,
+                        *w.row.values(), *bounds)
     lib = _build.library()
     out = torch.empty(counts.shape, dtype=out_dtype, device=counts.device)
     noise = denoised = None
@@ -143,7 +161,7 @@ def residual_fused(counts: torch.Tensor, w: BandWeights,
                                device=counts.device)
     with torch.cuda.device(counts.device):
         rc = lib.ic_residual_fused(
-            _build.ptr(counts), _IN_CODES[counts.dtype], *w.kernel_args(),
+            _build.ptr(counts), _IN_CODES[counts.dtype], *w.fused_args(),
             *(_build.ptr(b) for b in bounds), float(norm_factor), float(mct),
             int(center_mean), int(w.bf16), _build.ptr(out),
             _OUT_CODES[out_dtype],

@@ -157,7 +157,7 @@ class CnvEngine:
         #: the smooth of ref_stats and of the unfused routes: "row" (one row
         #: a block, smooth_banded.cu) or "general" (smooth_general.cu)
         self.smooth_route = ("row" if op.side_tiles == 1 and op.halfband <= 64
-                             and self._w_smooth.row_kernel_fits(0, smem)
+                             and self._w_smooth.row_kernel_fits(smem)
                              else "general")
         #: the residual's route: "fused", "wide_genome" or "wide_band"
         if op.side_tiles == 1 and _fused.fits(self._w_fused, smem):

@@ -58,7 +58,8 @@ def test_every_module_imports_without_jax():
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in
-                                        [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]))
+                                        [*PKG.rglob("*.py"), ROOT / "chip_smoke.py",
+                                         *(ROOT / "benchmarks").glob("torch_*.py")]))
 def test_no_jax_imports(path):
     roots = set(_imported_roots(ROOT / path))
     assert not roots & set(FORBIDDEN), f"{path} imports {roots & set(FORBIDDEN)}"

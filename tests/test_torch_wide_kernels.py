@@ -264,10 +264,10 @@ def test_row_kernel_capacity():
 
     _, tgo = gene_orders(list(realistic_sizes()))
     w = tsmooth.BandWeights.from_operator(tlayout.smoothing_operator(tgo, 101), "cpu")
-    assert tres.fits(w, SMEM_OPTIN_BYTES) and w.row_kernel_fits(0, SMEM_OPTIN_BYTES)
+    assert tres.fits(w, SMEM_OPTIN_BYTES) and w.row_kernel_fits(SMEM_OPTIN_BYTES)
     # 8448 f32 (33 KB) + pads + common column + edge buffer + select
     assert 33_792 < w.row_smem_bytes() < 50_000
     _, wide = gene_orders([60_000 // 22] * 21 + [60_000 - 21 * (60_000 // 22)])
     ww = tsmooth.BandWeights.from_operator(tlayout.smoothing_operator(wide, 101), "cpu")
     assert not tres.fits(ww, SMEM_OPTIN_BYTES)
-    assert not ww.row_kernel_fits(0, SMEM_OPTIN_BYTES)
+    assert not ww.row_kernel_fits(SMEM_OPTIN_BYTES)

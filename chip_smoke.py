@@ -352,6 +352,41 @@ def span_ms(spans) -> float:
     return sum(a.elapsed_time(b) for a, b in spans) / len(spans)
 
 
+def median_awkward(dev, yc, yw) -> dict:
+    """Awkward shapes of the median kernels, name -> (rows, width): rows
+    not 16-byte aligned (8447 genes), widths of 1 and 2, one row and fewer
+    rows than the persistent grid, rows of one value (every lane's digits
+    in one bin), the widths either side of the plan's switch from blocks of
+    256 threads to one block of 1024 an SM, and either side of its split
+    point S (the values the row buffer holds; wider rows read the rest from
+    device memory), and 60,000 genes as the first columns of rows of stride
+    60,005."""
+    import torch
+
+    from infercnv_tpu_torch.ops.median import card_plan
+
+    G = yc.shape[1]
+    S = card_plan(WIDE_GENES, WIDE_GENES, dev).capacity
+    threads = [card_plan(g, g, dev).threads for g in range(1, S + 1)]
+    switches = [g for g in range(2, S + 1) if threads[g - 1] != threads[g - 2]]
+    pad = torch.full((yw[:100].shape[0], WIDE_GENES + 5), float("inf"),
+                     device=dev)
+    pad[:, :WIDE_GENES] = yw[:100]
+    cases = {"G8447_C4133": yc[:4133, :G - 1].contiguous(),
+             "G8448_C1": yc[:1], "G8448_C100": yc[:100],
+             "G8448_C4133": yc[:4133],
+             "G1_C100": yc[:100, :1].contiguous(),
+             "G2_C100": yc[:100, :2].contiguous(),
+             "G8448_equal_C100": torch.full((100, G), 0.375, device=dev),
+             f"G{WIDE_GENES}_equal_C100": torch.full((100, WIDE_GENES), -1.5,
+                                                    device=dev),
+             f"G{WIDE_GENES}_ld{WIDE_GENES + 5}_C100": pad[:, :WIDE_GENES]}
+    for g in sorted({w for s in switches for w in (s - 1, s)}
+                    | {S - 1, S, S + 1, S + 4}):
+        cases[f"G{g}_C100"] = yw[:100, :g].contiguous()
+    return {k: (v, v.shape[1]) for k, v in cases.items()}
+
+
 def run(dev) -> int:
     import numpy as np
     import torch
@@ -362,8 +397,8 @@ def run(dev) -> int:
     from infercnv_tpu_torch.models.hmm import i3_hmm_params
     from infercnv_tpu_torch.ops import _build
     from infercnv_tpu_torch.ops.median import (
-        median_center_residual, median_center_residual_plain, row_median,
-        row_median_plain)
+        card_plan, median_center_residual, median_center_residual_plain,
+        row_median, row_median_plain)
     from infercnv_tpu_torch.ops.residual_fused import (
         counts_to_f32, denoise, residual_fused, residual_fused_plain)
     from infercnv_tpu_torch.ops.layout import (
@@ -706,8 +741,15 @@ def run(dev) -> int:
     for e in (edge, edge[:, :1000]):      # odd and even widths
         require(bits_equal(row_median(e.contiguous()), row_median_plain(e)),
                 "row_median differs on ties, infinities or -0")
+    awkward_m = median_awkward(dev, yc, yw)
+    for name, (xx, _n) in awkward_m.items():
+        require(bits_equal(row_median(xx), row_median_plain(xx)),
+                f"row_median ({name}) differs from its plain version")
     rows["row_median"] = dict(
-        max_abs_err=0.0, bits_equal=True,
+        max_abs_err=0.0, bits_equal=True, awkward_bits_equal=sorted(awkward_m),
+        plans={"coordinates": dataclasses.asdict(card_plan(G, G, dev)),
+               "wide_genome": dataclasses.asdict(card_plan(WIDE_GENES, WIDE_GENES,
+                                                           dev))},
         ms=time_ms(lambda: row_median(yc)),
         ms_wide_genome_row_not_staged=time_ms(lambda: row_median(yw)),
         plain_ms=time_ms(lambda: row_median_plain(yc), reps=3),
@@ -740,9 +782,27 @@ def run(dev) -> int:
     require(ok and bits_equal(m6p, pm6p) and bits_equal(o6p, o6s[:rows_p]),
             f"median_center_residual (padded rows) differs (max {err_p})")
     del o6s, yp, o6p, p6p
+    # the awkward shapes of kernel 7, with bounds of their width (a padded
+    # tensor passes its full rows, num_genes its width)
+    g6 = {}
+    for name, (xx, n) in awkward_m.items():
+        lo, hi = ((c2 if n <= G else g2)[i][:n].contiguous() for i in (0, 1))
+        yy = xx if xx.is_contiguous() else xx.as_strided(
+            (xx.shape[0], xx.stride(0)), (xx.stride(0), 1))
+        o, m = median_center_residual(yy, lo, hi, n, with_median=True)
+        po, pm = median_center_residual_plain(yy, lo, hi, n)
+        ok, e = close(o, po)
+        require(ok and bits_equal(m, pm), f"median_center_residual ({name}) "
+                f"differs from its plain version (max {e})")
+        g6[name] = e
+    del awkward_m
     rows["median_center_residual"] = dict(
         max_abs_err=err, max_abs_err_row_staged=err_s,
         max_abs_err_padded_rows=err_p, median_bits_equal=True,
+        awkward_max_abs_err=g6,
+        plans={"wide_genome": dataclasses.asdict(card_plan(WIDE_GENES, WIDE_GENES,
+                                                           dev)),
+               "8448": dataclasses.asdict(card_plan(G, G, dev))},
         ms=time_ms(lambda: median_center_residual(yw, *g2, WIDE_GENES)),
         ms_8448_row_staged=time_ms(lambda: median_center_residual(yc, *c2, G)),
         plain_ms=time_ms(lambda: median_center_residual_plain(yw, *g2, WIDE_GENES),

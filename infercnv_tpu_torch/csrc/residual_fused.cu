@@ -431,6 +431,7 @@ struct SwzRow {
   const float* row;
   int t4, span, q0, q1, per;
   static constexpr int kPer = 4;
+  static constexpr bool kVote = false;
   __device__ SwzRow(const float* r, int t4_, int span_, int P)
       : row(r), t4(t4_), span(span_) {
     q0 = (t4 / 4) & ~15;
@@ -438,6 +439,8 @@ struct SwzRow {
     per = ((q1 - q0 + blockDim.x - 1) / blockDim.x) | 1;
   }
   __device__ __forceinline__ int steps(int) const { return per; }
+  __device__ __forceinline__ int full_steps(int) const { return 0; }
+  __device__ __forceinline__ void load_full(int, float (&)[4]) const {}
   __device__ __forceinline__ void load(int step, float (&v)[4],
                                        bool (&ok)[4]) const {
     const int q = q0 + threadIdx.x * per + step;
@@ -608,7 +611,7 @@ residual_fused_kernel(ResidualArgs p, OutT* __restrict__ out) {
       centre = __fdiv_rn(block_sum(v, red), static_cast<float>(G));
     } else {
       fill_gaps(row, t4, bd, seg, __int_as_float(0x7F800000));
-      centre = block_row_median(SwzRow(row, t4, bd.span, P), G, sel, true);
+      centre = block_row_median(SwzRow(row, t4, bd.span, P), G, sel);
       fill_gaps(row, t4, bd, seg, 0.0f);
     }
 

@@ -110,7 +110,8 @@ class EngineConfig:
     #: the 1e-5 parity
     matmul_dtype: str = "float32"
     #: radix digit width of the reference's median select; the median is
-    #: exact for every width, and the CUDA kernel always selects 8 bits a pass
+    #: exact for every width, and the CUDA kernels always select in three
+    #: passes of 11, 11 and 10 bits (csrc/radix_select.cuh)
     median_radix_bits: int = 1
     #: dtype of transform_chunk's residual ("float32" | "float16" |
     #: "bfloat16"); rounding happens only at the final store

@@ -9,7 +9,11 @@ Phases, each printing one JSON line:
   routes      the route each path's engine takes (residual and smooth), and
               the coordinates band (halfband, nonzeros, taps a tile)
   kernels     each CUDA kernel against its plain PyTorch version on the card,
-              at the shapes its path gives it, with times (CUDA events)
+              at the shapes its path gives it and at awkward ones (the
+              Viterbi in both regimes of its launch plan, and with its
+              backpointers in device memory), with times (CUDA
+              events; the one-row smooth and the Viterbi, calls of tens of
+              microseconds, as 20 calls in a CUDA graph)
   main_path   the bench workload on the port: 8448 genes on 22 chromosomes,
               u16 counts, 32768-cell chunks, 256 reference cells in 2 groups,
               16 subclusters with a planted 0.5x loss on chr2 and 2x gain on
@@ -71,6 +75,7 @@ WIDE_GENES = 60_000
 WIDE_CHUNK = 8192
 N_SHORT_ITER = 2            # chunks of the wide-genome and bf16 paths
 N_CHECK = 512               # cells of the card-against-CPU checks
+REF_CHUNK = 16384           # rows of ref_stats' chunks above its threshold
 #: GRCh38 chromosome lengths, chr1..chr22, in Mbp
 GRCH38_MBP = (248.96, 242.19, 198.30, 190.21, 181.54, 170.81, 159.35, 145.14,
               138.39, 133.80, 135.09, 133.28, 114.36, 107.04, 101.99, 90.34,
@@ -122,6 +127,27 @@ def time_ms(fn, reps: int = 5, warmup: int = 1) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def graph_ms(fn, n: int = 20, reps: int = 5) -> float:
+    """Device time of one call: n calls captured in a CUDA graph, the graph
+    replayed (median of reps, CUDA events), divided by n.  Calls of tens of
+    microseconds take longer on the host than on the card; timed one at a
+    time (time_ms) they measure the host."""
+    import torch
+
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fn()
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        for _ in range(n):
+            fn()
+    ms = time_ms(g.replay, reps=reps) / n
+    del g
+    return ms
 
 
 def bound(nbytes: float, flops: float):
@@ -405,8 +431,12 @@ def run(dev) -> int:
         coordinate_smoothing_operator, smoothing_operator)
     from infercnv_tpu_torch.ops.smoothing import (
         BandWeights, apply_banded, apply_banded_general, apply_banded_plain)
+    from infercnv_tpu_torch.ops.viterbi_kernel import card_plan as viterbi_card_plan
+    from infercnv_tpu_torch.ops.viterbi_kernel import launch as viterbi_launch
+    from infercnv_tpu_torch.ops.viterbi_kernel import latency_smem_bytes as viterbi_smem_bytes
     from infercnv_tpu_torch.ops.viterbi_kernel import (
         transition_logs, viterbi, viterbi_plain)
+    from infercnv_tpu_torch.ops.viterbi_pack import viterbi_packed
     from infercnv_tpu_torch.parallel.engine import CnvEngine
 
     # ---- device -------------------------------------------------------
@@ -481,41 +511,58 @@ def run(dev) -> int:
     rows = {}
 
     # ---- kernels 3 and 4: banded smooth [256, 8448], f32 and bf16 -------
-    x = torch.randn((N_REF, G), generator=gen, device=dev)
-    yk = apply_banded(x, w)
-    yp = apply_banded_plain(x, w)
-    torch.cuda.synchronize()
-    ok, err = close(yk, yp)
-    require(ok, f"smooth_banded differs from its plain version (max {err})")
-    W = w.dense()
-    rows["smooth_banded"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: apply_banded(x, w)),
-        plain_ms=time_ms(lambda: apply_banded_plain(x, w)),
-        library_ms=time_ms(lambda: torch.matmul(x, W)),
-        bound=bound(2 * x.numel() * 4 + w.band.numel() * 4, 2.0 * nnz * N_REF),
-        shape=list(x.shape))
-    del W
+    # (and ref_stats' chunk of 16,384 rows; awkward shapes: G = 8447, whose
+    # rows are not 16-byte aligned, and one row, fewer blocks than SMs).
+    # ms: the device time (graph_ms); ms_one_call: one call timed alone, as
+    # earlier runs timed it (host time included)
     wb = be._w_smooth
-    yk4 = apply_banded(x, wb)
-    ok, err = close(yk4, apply_banded_plain(x, wb), tol=1e-5)
-    require(ok, f"smooth_banded_bf16 differs from its plain version (max {err})")
-    # bf16 keeps 8 significant bits: each product moves by at most
-    # (2u + u^2) of |w||x|, u = 2^-8 (plus the f32 sums)
-    diff = (yk4 - yk).abs()
-    rb = (2.0 ** -7 + 2.0 ** -16) * apply_banded(x.abs(), w) + 1e-6
-    require(bool((diff <= rb).all()), "smooth_banded_bf16: beyond the bf16 "
-            f"rounding bound of the f32 smooth (max {float(diff.max())})")
-    rows["smooth_banded_bf16"] = dict(
-        max_abs_err=err, max_abs_diff_from_f32=float(diff.max()),
-        max_diff_from_f32_over_max_f32=float(diff.max() / yk.abs().max()),
-        ms=time_ms(lambda: apply_banded(x, wb)),
-        plain_ms=time_ms(lambda: apply_banded_plain(x, wb)),
-        library_ms=None,
-        bound=bound(2 * x.numel() * 4 + wb.band.numel() * 4,
-                    2.0 * int((wb.band != 0).sum()) * N_REF),
-        shape=list(x.shape))
-    del x, yk, yp, yk4, diff, rb
+    ws7 = {bf: BandWeights.from_operator(smoothing_operator(bench_genome(G - 1), 101),
+                                         dev, bf16=bf) for bf in (False, True)}
+    x = torch.randn((N_REF, G), generator=gen, device=dev)
+    xl = torch.randn((REF_CHUNK, G), generator=gen, device=dev)
+    s_cases = {"G8448_C256": (x, w, wb), "G8447_C256": (x[:, :G - 1].contiguous(), *ws7.values()),
+               "G8448_C1": (x[:1], w, wb), "G8448_C16384": (xl, w, wb)}
+    s_err = {False: {}, True: {}}
+    for name, (xx, wf, wh) in s_cases.items():
+        yk = apply_banded(xx, wf)
+        ok, e = close(yk, apply_banded_plain(xx, wf))
+        require(ok, f"smooth_banded ({name}) differs from its plain version (max {e})")
+        s_err[False][name] = e
+        yk4 = apply_banded(xx, wh)
+        ok, e = close(yk4, apply_banded_plain(xx, wh), tol=1e-5)
+        require(ok, f"smooth_banded_bf16 ({name}) differs from its plain version (max {e})")
+        s_err[True][name] = e
+        # bf16 keeps 8 significant bits: each product moves by at most
+        # (2u + u^2) of |w||x|, u = 2^-8 (plus the f32 sums)
+        diff = (yk4 - yk).abs()
+        rb = (2.0 ** -7 + 2.0 ** -16) * apply_banded(xx.abs(), wf) + 1e-6
+        require(bool((diff <= rb).all()), f"smooth_banded_bf16 ({name}): beyond the "
+                f"bf16 rounding bound of the f32 smooth (max {float(diff.max())})")
+        if name == "G8448_C256":
+            bf16_diff = (float(diff.max()), float(diff.max() / yk.abs().max()))
+        del yk, yk4, diff, rb
+    del ws7
+    W = w.dense()
+    for name, wt, lib_ms in (("smooth_banded", w, time_ms(lambda: torch.matmul(x, W))),
+                             ("smooth_banded_bf16", wb, None)):
+        nz = 2.0 * int((wt.band != 0).sum())
+        rows[name] = dict(
+            max_abs_err=s_err[wt.bf16]["G8448_C256"],
+            awkward_max_abs_err=s_err[wt.bf16],
+            ms=graph_ms(lambda: apply_banded(x, wt)),
+            ms_one_call=time_ms(lambda: apply_banded(x, wt)),
+            ms_16384=time_ms(lambda: apply_banded(xl, wt)),
+            plain_ms=time_ms(lambda: apply_banded_plain(x, wt)),
+            plain_ms_16384=time_ms(lambda: apply_banded_plain(xl, wt), reps=3),
+            library_ms=lib_ms,
+            bound=bound(2 * x.numel() * 4 + wt.band.numel() * 4, nz * N_REF),
+            bound_ms_16384=bound(2 * xl.numel() * 4 + wt.band.numel() * 4,
+                                 nz * REF_CHUNK)[0],
+            spans_a_row=wt.spans.nspan, shape=list(x.shape),
+            shape_16384=list(xl.shape))
+    rows["smooth_banded_bf16"].update(max_abs_diff_from_f32=bf16_diff[0],
+                                      max_diff_from_f32_over_max_f32=bf16_diff[1])
+    del W, x, xl
 
     # ---- kernel 1: fused residual [32768, 8448] u16 -> f32/f16/bf16 ----
     rk = {odt: residual_fused(counts_a, w, *b1, *b2, nf, out_dtype=odt)
@@ -605,7 +652,8 @@ def run(dev) -> int:
                     2.0 * int((wfb.band != 0).sum()) * CHUNK),
         shape=list(counts_a.shape))
 
-    # ---- kernel 2: Viterbi, subcluster (B = 208) and cells mode, i6 and i3
+    # ---- kernel 2: Viterbi, subcluster (B = 208) and cells mode, i6 and i3,
+    # each shape in both regimes of the launch plan
     def packer(layout):
         gather = torch.as_tensor(layout.gather, dtype=torch.int64, device=dev)
         n_bins, L = gather.shape
@@ -620,29 +668,70 @@ def run(dev) -> int:
                     bnd_bin.repeat(C, 1))
         return packed
 
+    def hmm_args(means, t=1e-6):
+        log_diag, log_off, log_delta = transition_logs(len(means), t)
+        return (np.asarray(means, np.float32), log_delta, log_diag, log_off)
+
+    def check_states(args, hargs, what):
+        """The kernel's states equal the plain version's, in both regimes,
+        and in the latency regime also with its backpointers in device
+        memory (the plan's choice for sequences too long for shared
+        memory)."""
+        want = viterbi_plain(*args, *hargs)
+        B_, L_ = args[0].shape
+        S_ = len(hargs[0])
+        lat = viterbi_card_plan(B_, L_, S_, dev, regime="latency")
+        plans = {"latency": lat, "throughput": viterbi_card_plan(
+                     B_, L_, S_, dev, regime="throughput"),
+                 "latency, backpointers in device memory": dataclasses.replace(
+                     lat, bp_shared=False, smem_bytes=viterbi_smem_bytes(
+                         S_, L_, lat.ring, lat.threads, False))}
+        for regime, plan in plans.items():
+            require(torch.equal(viterbi(*args, *hargs, plan=plan), want),
+                    f"viterbi ({what}, {regime} regime) states differ from the "
+                    "plain version")
+
     def check_viterbi(hmm_, packed, resid, what):
-        log_diag, log_off, log_delta = transition_logs(hmm_.num_states, hmm_.t)
+        hargs_ = hmm_args(hmm_.means, hmm_.t)
         sigma = float(np.float32(np.median(hmm_.sds)))
         gm = (onehot @ resid) / onehot.sum(dim=1, keepdim=True)
-        args_sub = packed(gm, sigma)
-        for mode, args in (("subclusters", args_sub),
+        args_sub_ = packed(gm, sigma)
+        for mode, args in (("subclusters", args_sub_),
                            ("cells_4096", packed(resid[:4096], sigma))):
-            sk = viterbi(*args, hmm_.means, log_delta, log_diag, log_off)
-            sp = viterbi_plain(*args, hmm_.means, log_delta, log_diag, log_off)
-            require(torch.equal(sk, sp),
-                    f"viterbi ({what}, {mode}) states differ from the plain version")
-        return args_sub, (hmm_.means, log_delta, log_diag, log_off)
+            check_states(args, hargs_, f"{what}, {mode}")
+        return args_sub_, hargs_
 
     r32 = rk[torch.float32]
     packed6 = packer(engine._layout)
     args_sub, hargs = check_viterbi(hmm, packed6, r32, "i6")
     S = hmm.num_states
     B, L = args_sub[0].shape
-    valid_positions = int(args_sub[1].sum())
-    v_bytes = B * L * (4 + 1 + 1) + B * 8
-    args_full = packed6(r32, float(args_sub[2][0]))
-    ms_full = time_ms(lambda: viterbi(*args_full, *hargs), reps=3)
-    del args_full, rk, r32
+
+    def v_bound(args, n_states):
+        """Bytes (x in, a state byte out, lengths, sigma) or operations
+        (VITERBI_FLOPS a valid (position, state)) of a Viterbi call."""
+        Bv, Lv = args[0].shape
+        return bound(Bv * Lv * (4 + 1 + 1) + Bv * 8,
+                     float(VITERBI_FLOPS) * int(args[1].sum()) * n_states)
+
+    # cells mode: the kernel alone on inputs laid out for it, the wrapper
+    # (with its transposes), and the engine's packed call (with the gather
+    # and the inverse gather)
+    sig6 = float(args_sub[2][0])
+    args_full = packed6(r32, sig6)
+    plan_full = viterbi_card_plan(*args_full[0].shape, S, dev)
+    laid_full = tuple(a.contiguous() for a in args_full)
+    sig_rows = torch.full((CHUNK,), sig6, device=dev)
+    cells = dict(
+        ms_cells_mode_kernel=time_ms(lambda: viterbi_launch(*laid_full, *hargs,
+                                                            plan_full), reps=3),
+        ms_cells_mode_full_chunk=time_ms(lambda: viterbi(*args_full, *hargs), reps=3),
+        ms_cells_mode_packed=time_ms(lambda: viterbi_packed(
+            r32, engine._layout, hmm.means, sig_rows, hmm.t), reps=3),
+        bound_ms_cells_mode=v_bound(args_full, S)[0],
+        plan_cells_mode=dataclasses.asdict(plan_full),
+        shape_cells_mode=list(args_full[0].shape))
+    del args_full, laid_full, rk, r32
     # i3 (S = 3): the coordinates engine's residual and the i3 parameters
     # from its transformed reference cells
     ref_groups = [np.arange(N_REF // 2), np.arange(N_REF // 2, N_REF)]
@@ -651,16 +740,72 @@ def run(dev) -> int:
     rc = cin.engine.transform_chunk(cin.counts_a, cin.nf, cin.ml, cin.mr)
     args_sub3, hargs3 = check_viterbi(h3, packer(cin.engine._layout), rc, "i3")
     del rc
+    # the 60,000-gene genome's layout (10 bins of 6460), 16 group means
+    wl = win.engine._layout
+    gm_w = 1.0 + 0.2 * torch.randn((N_SUB, WIDE_GENES), generator=gen, device=dev)
+    gm_w[N_SUB // 2:, :WIDE_GENES // 8] += 0.6
+    args_wide = packer(wl)(gm_w, sig6)
+    # awkward shapes, each in both regimes for i6 and i3: one sequence, 129
+    # of mixed lengths with restarts inside them, L = 1, emissions that tie
+    # (x on the round means of hmm_args' models and their midpoints, sigma
+    # 0.5), a restart at every position, and the 60,000-gene layout
+    L1 = torch.zeros((64, 1), device=dev)
+    xm = 1.0 + 0.3 * torch.randn((129, L), generator=gen, device=dev)
+    lens_m = torch.randint(1, L + 1, (129,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    bnd_m = torch.zeros((129, L), dtype=torch.int8, device=dev)
+    bnd_m[:, [0, L // 3, 2 * L // 3]] = 1
+    bnd_m[torch.arange(L, device=dev)[None, :] >= lens_m[:, None]] = 0
+
+    def ties_args(means):
+        grid = torch.tensor(np.concatenate([means, (means[1:] + means[:-1]) / 2]),
+                            dtype=torch.float32, device=dev)
+        xt = grid[torch.randint(0, grid.shape[0], (160, L), generator=gen, device=dev)]
+        bt = torch.zeros((160, L), dtype=torch.int8, device=dev)
+        bt[:, [0, L // 2]] = 1
+        return (xt, torch.full((160,), L, dtype=torch.int32, device=dev),
+                torch.full((160,), 0.5, device=dev), bt)
+
+    round6 = np.array([0.0, 0.5, 1.0, 1.5, 2.0, 3.0])
+    round3 = np.array([0.5, 1.0, 1.5])
+    v_awkward = []
+    for model, ha, sig, rmeans in (("i6", hargs, sig6, round6),
+                                   ("i3", hargs3, float(args_sub3[2][0]), round3)):
+        cases_v = {
+            "B1": tuple(a[:1] for a in args_sub),
+            "B129_mixed_lengths": (xm, lens_m, torch.full((129,), sig, device=dev), bnd_m),
+            "L1": (L1, torch.ones(64, dtype=torch.int32, device=dev),
+                   torch.full((64,), sig, device=dev), torch.zeros((64, 1), dtype=torch.int8,
+                                                                  device=dev)),
+            "restart_every_position": (*args_sub[:3], torch.ones_like(args_sub[3])),
+            f"B160_L{args_wide[0].shape[1]}": args_wide[:2] + (
+                torch.full_like(args_wide[2], sig), args_wide[3])}
+        for name, args in cases_v.items():
+            check_states(args, ha, f"{model}, {name}")
+            v_awkward.append(f"{model}_{name}")
+        check_states(ties_args(rmeans), hmm_args(rmeans), f"{model}, ties")
+        v_awkward.append(f"{model}_ties")
     rows["viterbi"] = dict(
         max_abs_err=0.0, states_equal=True, states_equal_i3=True,
-        ms=time_ms(lambda: viterbi(*args_sub, *hargs)),
-        ms_i3_subclusters=time_ms(lambda: viterbi(*args_sub3, *hargs3)),
+        awkward_states_equal=v_awkward,
+        plan=dataclasses.asdict(viterbi_card_plan(B, L, S, dev)),
+        ms=graph_ms(lambda: viterbi(*args_sub, *hargs)),
+        ms_one_call=time_ms(lambda: viterbi(*args_sub, *hargs)),
+        ms_throughput_regime=graph_ms(lambda: viterbi(
+            *args_sub, *hargs, plan=viterbi_card_plan(B, L, S, dev, "throughput"))),
+        ms_i3_subclusters=graph_ms(lambda: viterbi(*args_sub3, *hargs3)),
         shape_i3_subclusters=list(args_sub3[0].shape),
-        ms_cells_mode_full_chunk=ms_full,
+        bound_ms_i3_subclusters=v_bound(args_sub3, 3)[0],
+        ms_wide_genome=graph_ms(lambda: viterbi(*args_wide, *hargs), n=5),
+        plan_wide_genome=dataclasses.asdict(viterbi_card_plan(*args_wide[0].shape, S, dev)),
+        shape_wide_genome=list(args_wide[0].shape),
+        bound_ms_wide_genome=v_bound(args_wide, S)[0],
+        **cells,
         plain_ms=time_ms(lambda: viterbi_plain(*args_sub, *hargs), reps=3),
         library_ms=None,
-        bound=bound(v_bytes, float(VITERBI_FLOPS) * valid_positions * S),
+        bound=v_bound(args_sub, S),
         shape=[B, L])
+    del args_wide, gm_w, xm
 
     # ---- kernel 5: general-band smooth, coordinates [32768, 8448] and a
     # 60,000-gene genome [8192, 60000]

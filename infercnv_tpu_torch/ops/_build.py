@@ -35,7 +35,9 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "ic_error_string": ([_I], ctypes.c_char_p),
     "ic_max_smem_optin": ([_P], _I),
-    "ic_smooth_banded": ([_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P], _I),
+    "ic_smooth_banded": ([_P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P,
+                          _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I,
+                          _I, _P], _I),
     "ic_smooth_general": ([_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
                           _I),
     "ic_residual_fused": ([_P, _I, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _I,
@@ -44,8 +46,8 @@ _SIGNATURES = {
     "ic_row_median": ([_P, _I, _I, _I, _P, *[_I] * 6, _P], _I),
     "ic_median_center_residual": ([_P, _I, _P, _P, _P, _I, _P, _I, _I,
                                    *[_I] * 6, _P], _I),
-    "ic_viterbi": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _F, _F, _P],
-                   _I),
+    "ic_viterbi": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _F, _F, _I,
+                    _I, _I, _I, _I, _I, _P], _I),
 }
 
 _lock = threading.Lock()
@@ -138,6 +140,21 @@ def max_smem_optin(device: torch.device) -> int:
     with torch.cuda.device(device):
         check(library().ic_max_smem_optin(ctypes.byref(out)), "max_smem_optin")
     return out.value
+
+
+#: (opt-in shared memory a block, SMs) of each CUDA device index
+_CARDS: dict = {}
+
+
+def card_limits(device: torch.device) -> tuple:
+    """(shared memory a block may opt in to, SM count) of a CUDA device,
+    read once: what the kernels' launch plans are sized by."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _CARDS:
+        dev = torch.device("cuda", idx)
+        _CARDS[idx] = (max_smem_optin(dev),
+                       torch.cuda.get_device_properties(dev).multi_processor_count)
+    return _CARDS[idx]
 
 
 def stream_of(t: torch.Tensor) -> ctypes.c_void_p:

@@ -129,18 +129,9 @@ def median_plan(G: int, ld: int, smem_optin: int, n_sm: int,
                       tail=G - staged, smem_bytes=smem)
 
 
-#: (opt-in shared memory a block, SMs) of each CUDA device index
-_CARDS: dict = {}
-
-
 def card_plan(G: int, ld: int, device: torch.device) -> MedianPlan:
     """median_plan on a CUDA device's own shared memory and SM count."""
-    idx = device.index if device.index is not None else torch.cuda.current_device()
-    if idx not in _CARDS:
-        dev = torch.device("cuda", idx)
-        _CARDS[idx] = (_build.max_smem_optin(dev),
-                       torch.cuda.get_device_properties(dev).multi_processor_count)
-    return median_plan(G, ld, *_CARDS[idx])
+    return median_plan(G, ld, *_build.card_limits(device))
 
 
 def to_key(v: torch.Tensor) -> torch.Tensor:

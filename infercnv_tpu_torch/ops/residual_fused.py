@@ -27,7 +27,7 @@ import torch
 
 from infercnv_tpu_torch.ops import _build
 from infercnv_tpu_torch.ops.median import row_median_plain
-from infercnv_tpu_torch.ops.smoothing import BandWeights, apply_banded_plain
+from infercnv_tpu_torch.ops.smoothing import BandWeights, apply_banded_plain, swz_row_len
 
 #: launches of the CUDA kernel (the plain version does not count), with f32
 #: weights and with bf16 ones (the reference's bf16 flag)
@@ -79,7 +79,7 @@ def smem_bytes(w: BandWeights) -> int:
     and the general genes', the segment starts, the segment of each group
     of 8 genes (2 bytes), 32 block sums and the select."""
     p, t4, G = w.plan, w.halfband4, w.num_genes
-    row = ((p.span + 7) // 8 * 8 + 2 * t4 + 16 + 63) // 64 * 64
+    row = swz_row_len(p.span, t4)
     extra = 8 * p.sitems.shape[0] + p.general.shape[0]
     return (4 * (2 * (2 * t4 + 4) + row + extra + p.seg.shape[0]
                  + (G + 15) // 16 + 32)

@@ -4,11 +4,12 @@ Counterpart of infercnv_tpu/ops/smoothing.py.  ``apply_banded_plain`` is the
 tile einsum of ``_apply_banded`` (lines 29-50), the plain version of every
 smooth here.  Two wrappers launch CUDA kernels:
 
-* ``apply_banded``: ``csrc/smooth_banded.cu``, one row a block, for
-  halfbands up to 64 whose row fits in shared memory.  It replaces the TPU
-  kernel ``_smooth_kernel_k256`` (``_apply_banded_pallas_k256``, lines
-  74-151) and, given bf16 weights, ``_smooth_kernel_k256_bf16`` (lines
-  84-94).
+* ``apply_banded``: ``csrc/smooth_banded.cu``, for halfbands up to 64: the
+  fused residual kernel's smooth on its row plan (``row_plan``), each row
+  split into spans of ``SPAN_COORDS`` coordinates, one block a span
+  (``span_plan``).  It replaces the TPU kernel ``_smooth_kernel_k256``
+  (``_apply_banded_pallas_k256``, lines 74-151) and, given bf16 weights,
+  ``_smooth_kernel_k256_bf16`` (lines 84-94).
 * ``apply_banded_general``: ``csrc/smooth_general.cu``, tiles of rows x
   genes, for any band and any number of genes.  It replaces
   ``_smooth_kernel_sides`` (``_apply_banded_pallas_sides``, lines 97-196).
@@ -28,6 +29,7 @@ smooth_by_chromosome_coordinates (:2534-2622).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -46,13 +48,23 @@ LAUNCHES_GENERAL = 0
 #: warp computes (kWarpG): each warp sums only its own nonzero taps
 GENERAL_TILE = 128
 GENERAL_WARP = 32
-#: threads a block of the one-row kernels, and outputs a thread (kThreads,
-#: kOut of band_smooth.cuh): the one-row smooth needs t4 + 4 <= their product
-_ROW_THREADS, _ROW_OUT = 256, 4
+#: coordinates of the gapped row a block of smooth_banded.cu smooths (its
+#: kSpan: 128 threads, one 8-coordinate item each), and the rows a block of
+#: its bf16 variant smooths (kBf16Rows: a scaled weight is rounded once for
+#: all of them)
+SPAN_COORDS = 1024
+BF16_ROWS = 4
 
 
 def _round4(v: int) -> int:
     return (v + 3) // 4 * 4
+
+
+def swz_row_len(span: int, t4: int) -> int:
+    """Floats of a swizzled row of `span` coordinates (swz_row_len of
+    csrc/band_smooth.cuh): the coordinates, a halfband of pads either side
+    and a float4 beyond, in whole runs of 64."""
+    return ((span + 7) // 8 * 8 + 2 * t4 + 16 + 63) // 64 * 64
 
 
 def round_bf16(a: np.ndarray) -> np.ndarray:
@@ -212,6 +224,45 @@ def row_plan(band4: np.ndarray, band4_f32: np.ndarray, common: np.ndarray,
         gtaps=(lo[gen] | (hi[gen] << 16)).astype(np.int32), span=span)
 
 
+@dataclasses.dataclass(frozen=True)
+class SpanPlan:
+    """How csrc/smooth_banded.cu splits a row plan's gapped row over blocks
+    (its struct SpanBand): span k holds the coordinates [k * SPAN_COORDS,
+    (k + 1) * SPAN_COORDS), and its block stages them with t4 coordinates
+    of halo either side.  The items (bf16 scaled items, general genes) of
+    span k are items[items[k]:items[k + 1]] of the row plan, and seg[k]
+    is the segment of the span's first staged coordinate, max(k *
+    SPAN_COORDS - t4, 0), from which its threads walk the segment starts."""
+
+    items: np.ndarray    # [nspan + 1] i32
+    sitems: np.ndarray   # [nspan + 1] i32
+    general: np.ndarray  # [nspan + 1] i32
+    seg: np.ndarray      # [nspan] i32
+
+    @property
+    def nspan(self) -> int:
+        return int(self.seg.shape[0])
+
+
+def span_plan(plan: RowPlan, t4: int) -> SpanPlan:
+    """The spans of a row plan (see SpanPlan): every item lies in the span
+    of its 8 coordinates (SPAN_COORDS is a multiple of 8), a general gene in
+    the span of its coordinate."""
+    nspan = -(-plan.span // SPAN_COORDS)
+    starts = np.arange(nspan + 1) * SPAN_COORDS
+
+    def first(coords):
+        return np.searchsorted(coords, starts, side="left").astype(np.int32)
+
+    nseg = plan.seg.shape[0] - 1
+    seg_start = plan.seg[:-1] + plan.gap * np.arange(nseg)
+    staged = np.maximum(starts[:-1] - t4, 0)
+    return SpanPlan(
+        items=first((plan.items >> 9) * 8), sitems=first((plan.sitems >> 9) * 8),
+        general=first(plan.general[:, 1]),
+        seg=(np.searchsorted(seg_start, staged, side="right") - 1).astype(np.int32))
+
+
 def kernel_band(band: np.ndarray, halfband: int) -> np.ndarray:
     """The CUDA kernels' band layout (csrc/band_smooth.cuh): with
     t4 = round4(t), row e weights x[g + e - t4] for y[g], e in [0, 2*t4 + 4);
@@ -224,21 +275,12 @@ def kernel_band(band: np.ndarray, halfband: int) -> np.ndarray:
     return out
 
 
-def common_column(band4: np.ndarray):
-    """(common [E] f32, slot [round4(G) / 4] i32, edges [n] i32) of a kernel
-    band: the column that occurs most often (a smoothing band's interior
-    columns are all alike); the "edge" groups, the aligned groups of 4 genes
-    with any column that differs from it exactly (near chromosome ends); and
-    for each group its place in that list, or -1.  The kernels read the
-    common groups' weights from a shared-memory copy of that column."""
-    cols, inverse, counts = np.unique(band4.T, axis=0, return_inverse=True,
-                                      return_counts=True)
-    top = int(counts.argmax())
-    common_group = (np.asarray(inverse).reshape(-1, 4) == top).all(axis=1)
-    edges = np.nonzero(~common_group)[0].astype(np.int32)
-    slot = np.full(common_group.shape[0], -1, np.int32)
-    slot[edges] = np.arange(edges.shape[0], dtype=np.int32)
-    return np.ascontiguousarray(cols[top], np.float32), slot, edges
+def common_column(band4: np.ndarray) -> np.ndarray:
+    """The column of a kernel band that occurs most often (a smoothing
+    band's interior columns are all alike), [E] f32: the row plan's common
+    column, which the row kernels hold in shared memory."""
+    cols, counts = np.unique(band4.T, axis=0, return_counts=True)
+    return np.ascontiguousarray(cols[int(counts.argmax())], np.float32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -246,16 +288,15 @@ class BandWeights:
     """A smoothing operator on one device, in the layouts its users take."""
 
     band: torch.Tensor    # [2t+1, G] f32: the operator's band
-    band4: torch.Tensor   # kernel_band(band): the CUDA kernels' operand, with
-    common: torch.Tensor  # its most common column,
-    slot: torch.Tensor    # each 4-gene group's place in edges or -1, and
-    edges: torch.Tensor   # the groups that differ from it (common_column)
+    band4: torch.Tensor   # kernel_band(band): the CUDA kernels' operand
+    common: torch.Tensor  # its most common column (common_column)
     tap_lo: torch.Tensor  # [tiles] the general kernel's taps (general_taps)
     tap_hi: torch.Tensor
     max_span: int
     warp_taps: torch.Tensor  # [warps] its warps' taps, lo | hi << 16
-    plan: RowPlan         # the fused kernel's (row_plan), numpy arrays
-    row: dict             # plan's arrays as tensors on the device
+    plan: RowPlan         # the row kernels' (row_plan), numpy arrays
+    spans: SpanPlan       # the one-row smooth's split of it (span_plan)
+    row: dict             # the arrays of both as tensors on the device
     blocks: torch.Tensor  # [2S+1, n_tiles, 128, 128] f32: the plain version's
     halfband: int
     n_tiles: int
@@ -277,31 +318,45 @@ class BandWeights:
         if bf16:
             band, blocks = round_bf16(band), round_bf16(blocks)
         band4 = kernel_band(band, op.halfband) if bf16 else band4_f32
-        common, slot, edges = common_column(band4)
+        common = common_column(band4)
         tap_lo, tap_hi, max_span, warp_taps = general_taps(band4)
         plan = row_plan(band4, band4_f32, common, op.num_genes,
                         _round4(op.halfband), bf16)
+        spans = span_plan(plan, _round4(op.halfband))
 
         def dev(a):
             return torch.as_tensor(a).to(device).contiguous()
 
+        row = {k: dev(getattr(plan, k)) for k in (
+            "common32", "seg", "items", "iscale", "sitems", "sscale",
+            "general", "gtaps")}
+        row.update({f"span_{k}": dev(getattr(spans, k))
+                    for k in ("items", "sitems", "general", "seg")})
         return BandWeights(
             band=dev(band), band4=dev(band4), common=dev(common),
-            slot=dev(slot), edges=dev(edges), tap_lo=dev(tap_lo),
-            tap_hi=dev(tap_hi), max_span=max_span, warp_taps=dev(warp_taps),
-            plan=plan,
-            row={k: dev(getattr(plan, k)) for k in (
-                "common32", "seg", "items", "iscale", "sitems", "sscale",
-                "general", "gtaps")},
+            tap_lo=dev(tap_lo), tap_hi=dev(tap_hi), max_span=max_span,
+            warp_taps=dev(warp_taps), plan=plan, spans=spans, row=row,
             blocks=dev(blocks), halfband=op.halfband, n_tiles=op.n_tiles,
             side_tiles=op.side_tiles, num_genes=op.num_genes, bf16=bf16)
 
-    def kernel_args(self):
-        """The band as the C entry points take it: band4, common, slot,
-        edges, the number of edges."""
+    @functools.cached_property
+    def span_args(self):
+        """The band as csrc/smooth_banded.cu takes it (struct SpanBand):
+        band4, common, common32, c_lo, c_hi, gap, the segment starts and
+        their number, the items and their scales, the bf16 scaled items and
+        their scales, the general genes and their taps, span, the spans'
+        first items, scaled items, general genes and segments, their number,
+        SPAN_COORDS."""
+        p, r = self.plan, self.row
         return (_build.ptr(self.band4), _build.ptr(self.common),
-                _build.ptr(self.slot), _build.ptr(self.edges),
-                int(self.edges.shape[0]))
+                _build.ptr(r["common32"]), p.c_lo, p.c_hi, p.gap,
+                _build.ptr(r["seg"]), int(p.seg.shape[0]) - 1,
+                _build.ptr(r["items"]), _build.ptr(r["iscale"]),
+                _build.ptr(r["sitems"]), _build.ptr(r["sscale"]),
+                _build.ptr(r["general"]), _build.ptr(r["gtaps"]), p.span,
+                *(_build.ptr(r[f"span_{k}"]) for k in
+                  ("items", "sitems", "general", "seg")),
+                self.spans.nspan, SPAN_COORDS)
 
     def fused_args(self):
         """The band as csrc/residual_fused.cu takes it (struct RowBand):
@@ -327,18 +382,28 @@ class BandWeights:
                 self.max_span)
 
     def row_smem_bytes(self) -> int:
-        """Shared memory of a block of the one-row smooth kernel
-        (band_smooth_smem_bytes of band_smooth.cuh)."""
+        """Shared memory of a block of the one-row smooth (span_smem_bytes
+        of csrc/smooth_banded.cu): the common column (and its f32 form with
+        bf16 weights), and for each of its rows (BF16_ROWS with bf16
+        weights, else one) a span's window with its halo and the span's
+        outputs."""
         t4 = self.halfband4
-        return 4 * ((2 * t4 + 4) + (_round4(self.num_genes) + 2 * t4 + 4)
-                    + int(self.edges.shape[0]) * _ROW_OUT)
+        rows = BF16_ROWS if self.bf16 else 1
+        return 4 * ((2 if self.bf16 else 1) * (2 * t4 + 4)
+                    + rows * (swz_row_len(SPAN_COORDS, t4) + SPAN_COORDS))
 
     def row_kernel_fits(self, smem_optin: int) -> bool:
-        """Whether the one-row kernel smooth_banded.cu takes this band and
-        row: the smooth's window within a tile of its threads, the block's
-        shared memory within the card's opt-in limit."""
-        return (self.halfband4 + 4 <= _ROW_THREADS * _ROW_OUT
-                and self.row_smem_bytes() <= smem_optin)
+        """Whether the engine's one-row route takes this band: a block of
+        smooth_banded.cu within the card's opt-in limit, and a gapped row
+        that one block could hold whole (the common columns and the
+        swizzled row, as the fused kernel holds it).  The kernel splits a
+        row over blocks and would take any width; the second condition
+        keeps a genome too wide for the fused kernel (60,000 genes) on the
+        tiled kernel 5 with the rest of its route (ROADMAP queue D)."""
+        t4 = self.halfband4
+        whole_row = 4 * (2 * (2 * t4 + 4) + swz_row_len(self.plan.span, t4))
+        return (self.row_smem_bytes() <= smem_optin
+                and whole_row <= smem_optin)
 
     def dense(self) -> torch.Tensor:
         """The [G, G] operator W with y = x @ W (a yardstick only: 285 MB
@@ -388,18 +453,18 @@ def _check_x(name: str, x: torch.Tensor, w: BandWeights) -> None:
 def apply_banded(x: torch.Tensor, w: BandWeights) -> torch.Tensor:
     """Banded smooth of x [C, G] f32 by the one-row kernel (f32, or bf16
     operands with bf16 weights).  CPU tensors take the plain version; CUDA
-    tensors launch the kernel, which needs a halfband of at most 64 (the
-    TPU kernel's limit) and a row that fits in shared memory."""
+    tensors launch the kernel (the engine takes it for halfbands of at most
+    64, the TPU kernel's limit, where row_kernel_fits)."""
     if x.device.type == "cpu":
         return apply_banded_plain(x, w)
     global LAUNCHES, LAUNCHES_BF16
     _check_x("apply_banded", x, w)
-    _build.check_inputs("apply_banded", x, w.band4, w.common, w.slot, w.edges)
+    _build.check_inputs("apply_banded", x, w.band4)   # w's tensors: one device
     lib = _build.library()
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         rc = lib.ic_smooth_banded(
-            _build.ptr(x), *w.kernel_args(), _build.ptr(y), x.shape[0],
+            _build.ptr(x), *w.span_args, _build.ptr(y), x.shape[0],
             w.num_genes, w.halfband4, int(w.bf16), _build.stream_of(x))
     _build.check(rc, "smooth_banded")
     if w.bf16:

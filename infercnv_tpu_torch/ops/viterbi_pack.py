@@ -146,5 +146,12 @@ def viterbi_packed(resid: torch.Tensor, layout: PackedLayout, means,
     states = viterbi(xp, lengths, sigma_b, bnd, means, log_delta,
                      log_diag, log_off)
     inv = torch.as_tensor(layout.inv_pack, dtype=torch.int64, device=dev)
-    vals = states.reshape(C, n_bins * Lmax)[:, inv]
+    if states.stride() == (1, states.shape[0]) and Lmax > 1:
+        # the kernel's [Lmax, C * n_bins] states, seen transposed: each
+        # gene's state is read from its bin and position in one gather,
+        # giving [G, C], returned as a [C, G] view
+        lb = states.t().view(Lmax, C, n_bins)
+        vals = lb[inv % Lmax, :, inv // Lmax].t()
+    else:
+        vals = states.reshape(C, n_bins * Lmax)[:, inv]
     return force_short_neutral(vals, layout.short_genes, S)

@@ -1,13 +1,20 @@
 """The schemes of the port's redesigned CUDA kernels, replayed in numpy on the
 CPU (the kernels themselves run only on the card): the fused residual
-kernel's row plan and its smooth (csrc/residual_fused.cu), the general
-smooth's per-warp tap ranges (csrc/smooth_general.cu), and the radix select
-with its folded lower middle (csrc/radix_select.cuh).  Each replay is held
-to the port's plain version and to the JAX package on the same numpy inputs.
+kernel's row plan and its smooth (csrc/residual_fused.cu), the one-row
+smooth's spans of that plan, each block with its halo (csrc/smooth_banded.cu),
+the general smooth's per-warp tap ranges (csrc/smooth_general.cu), and the
+radix select with its folded lower middle (csrc/radix_select.cuh).  Each
+replay is held to the port's plain version and to the JAX package on the
+same numpy inputs.
 
 Tolerances: smooths rtol = atol = 2e-5 against the reference (its residual
 tolerance) and atol 1e-6 against the plain version (both f32 products summed
-in another order); medians bit-exact."""
+in another order), the spans as the one-row smooth is held on the card
+(f32 rtol = atol = 2e-5; bf16 1e-5, and its operands' rounding bound of the
+f32 smooth); medians bit-exact."""
+
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import jax.numpy as jnp
@@ -120,6 +127,140 @@ def test_fused_plan_replays_the_smooth(name):
         want = np.asarray(_apply_banded(jnp.asarray(x), jnp.asarray(jop.blocks),
                                         jop.n_tiles, jop.side_tiles, jop.num_genes))
         np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def replay_span_smooth(w: tsmooth.BandWeights, x: np.ndarray) -> np.ndarray:
+    """The smooth of csrc/smooth_banded.cu as its span plan drives it: for
+    each span of SPAN_COORDS coordinates of the gapped row, a window of x
+    with t4 coordinates of halo either side, found by walking the segment
+    starts forward from the span's segment (zeros in the gaps and past the
+    row); the span's items (common, scaled, bf16 scaled) and general genes
+    into the span's outputs by coordinate; then the outputs stored gene by
+    gene.  Asserts that the walk never steps back, that every read lies in
+    the window, and that every gene is stored exactly once."""
+    p, sp = w.plan, w.spans
+    G, t4 = w.num_genes, w.halfband4
+    K = tsmooth.SPAN_COORDS
+    band4, common = w.band4.numpy(), w.common.numpy().astype(np.float64)
+    W = tsmooth.swz_row_len(K, t4)
+    nseg = p.seg.shape[0] - 1
+    seg_start = p.seg[:-1] + p.gap * np.arange(nseg)
+    if w.bf16:
+        x = tsmooth.round_bf16(x)
+    assert sp.nspan == -(-p.span // K) and sp.items[-1] == p.items.shape[0]
+    assert sp.sitems[-1] == p.sitems.shape[0] and sp.general[-1] == p.general.shape[0]
+    y = np.full((x.shape[0], G), np.nan)
+    taps = np.arange(p.c_lo, p.c_hi)
+
+    def genes(c, k):
+        """The gene at each coordinate c >= 0, or -1, walking from seg[k]."""
+        s = np.searchsorted(seg_start, c, side="right") - 1
+        assert (s >= sp.seg[k]).all()
+        g = c - p.gap * s
+        return np.where((c < p.span) & (g < p.seg[s + 1]), g, -1)
+
+    for k in range(sp.nspan):
+        s0 = k * K
+        c = s0 - t4 + np.arange(W)
+        g = np.where(c >= 0, genes(np.maximum(c, 0), k), -1)
+        # the kernel reads and writes 4 coordinates a step: their genes lie
+        # in one segment, consecutive
+        g4 = g.reshape(-1, 4)
+        for row in g4[(g4 >= 0).sum(axis=1) > 1]:
+            held = row[row >= 0]
+            assert (np.diff(held) == 1).all()
+            assert (np.searchsorted(p.seg, held, side="right") ==
+                    np.searchsorted(p.seg, held[0], side="right")).all()
+        win = np.where(g >= 0, x[:, np.maximum(g, 0)], 0.0)
+        res = np.full((x.shape[0], K), np.nan)
+        lists = [(p.items[sp.items[k]:sp.items[k + 1]],
+                  p.iscale[sp.items[k]:sp.items[k + 1]], False),
+                 (p.sitems[sp.sitems[k]:sp.sitems[k + 1]],
+                  p.sscale[sp.sitems[k]:sp.sitems[k + 1]], True)]
+        assert sum(a.shape[0] for a, _, _ in lists) <= K // 8   # an item a thread
+        for items, scales, bf16 in lists:
+            for it, sc in zip(items, scales):
+                o, scaled, mask = (it >> 9) * 8 - s0, (it >> 8) & 1, it & 0xFF
+                assert 0 <= o <= K - 8 and o + p.c_hi + 8 <= W
+                for j in range(8):
+                    if mask >> j & 1:
+                        if bf16:
+                            wt = tsmooth.round_bf16(np.float32(sc[j]) * p.common32[taps])
+                            res[:, o + j] = win[:, o + j + taps] @ wt.astype(np.float64)
+                        else:
+                            res[:, o + j] = win[:, o + j + taps] @ common[taps]
+                            if scaled:
+                                res[:, o + j] *= sc[j]
+        for (gg, cc), tp in zip(p.general[sp.general[k]:sp.general[k + 1]],
+                                p.gtaps[sp.general[k]:sp.general[k + 1]]):
+            e = np.arange(tp & 0xFFFF, tp >> 16)
+            o = cc - s0
+            assert 0 <= o < K and o + e.max(initial=0) < W
+            res[:, o] = win[:, o + e] @ band4[e, gg].astype(np.float64)
+        gs = genes(s0 + np.arange(K), k)
+        ok = gs >= 0
+        assert np.isnan(y[0, gs[ok]]).all() and not np.isnan(res[:, ok]).any()
+        y[:, gs[ok]] = res[:, ok]
+    assert not np.isnan(y).any()
+    return y
+
+
+def _span_genome(name):
+    """(port GeneOrder, window) of the span cases."""
+    cs = _chip_smoke()
+    if name == "bench":
+        return cs.bench_genome(), 101
+    if name == "human_like":
+        return cs.human_like_genome(8448), 101
+    if name == "G8447":
+        return cs.bench_genome(8447), 101
+    if name == "short_chromosome":     # chromosomes of 3 and 30 genes: < t
+        return gene_orders([1200, 3, 700, 30, 500])[1], 101
+    if name == "window_7":             # halfband 3: gaps of t4 = 4
+        return gene_orders([900, 13, 700, 9, 500])[1], 7
+    # a row shorter than one span
+    return gene_orders([400, 200, 90])[1], 101
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", ["bench", "human_like", "G8447",
+                                  "short_chromosome", "window_7",
+                                  "shorter_than_a_span"])
+def test_span_plan_replays_the_smooth(name, bf16):
+    """The one-row smooth's blocks, each a span of the gapped row with its
+    halo, together give the plain smooth: f32 within rtol = atol = 2e-5,
+    bf16 within 1e-5 of its plain version and within its operands' rounding
+    bound (2^-7 + 2^-16) * sum |w||x| of the f32 smooth."""
+    go, window = _span_genome(name)
+    op = tlayout.smoothing_operator(go, window)
+    w = tsmooth.BandWeights.from_operator(op, "cpu", bf16=bf16)
+    G = w.num_genes
+    if name == "shorter_than_a_span":
+        assert w.plan.span < tsmooth.SPAN_COORDS and w.spans.nspan == 1
+    else:
+        assert w.spans.nspan > 1
+    if name == "short_chromosome":
+        assert min(np.diff(w.plan.seg)) >= 8 and w.halfband > 30
+    if name == "window_7":
+        assert w.plan.gap == w.halfband4 == 4
+    x = np.random.default_rng(5).normal(size=(4, G)).astype(np.float32)
+    got = replay_span_smooth(w, x)
+    want = tsmooth.apply_banded_plain(torch.from_numpy(x), w).numpy()
+    tol = 1e-5 if bf16 else 2e-5
+    np.testing.assert_allclose(got, want, rtol=0 if bf16 else tol, atol=tol)
+    if bf16:
+        wf = tsmooth.BandWeights.from_operator(op, "cpu")
+        f32 = replay_span_smooth(wf, x)
+        scale = tsmooth.apply_banded_plain(torch.from_numpy(np.abs(x)), wf).numpy()
+        assert (np.abs(got - f32) <= (2.0 ** -7 + 2.0 ** -16) * scale + 1e-6).all()
 
 
 @pytest.mark.parametrize("name", ["bench_f32", "bench_bf16", "window_51"])

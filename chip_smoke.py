@@ -48,6 +48,7 @@ exits non-zero at once.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -76,6 +77,14 @@ WIDE_CHUNK = 8192
 N_SHORT_ITER = 2            # chunks of the wide-genome and bf16 paths
 N_CHECK = 512               # cells of the card-against-CPU checks
 REF_CHUNK = 16384           # rows of ref_stats' chunks above its threshold
+#: the run phases' objects: 8 observation groups (4-7 with the planted loss
+#: on chr2 and gain on chr5) and 2 reference groups, every group under the
+#: hclust partition's LINKAGE_MAX_CELLS (8,000)
+RUN_OBS = 4096
+RUN_REF = 1024
+RUN_CHECK_OBS = 96          # run_reference: 8 x 96 + 2 x 128 = 1,024 cells
+RUN_CHECK_REF = 128
+RUN_KW = dict(denoise=True, save_rds=False, no_plot=True, BayesMaxPNormal=0)
 #: GRCh38 chromosome lengths, chr1..chr22, in Mbp
 GRCH38_MBP = (248.96, 242.19, 198.30, 190.21, 181.54, 170.81, 159.35, 145.14,
               138.39, 133.80, 135.09, 133.28, 114.36, 107.04, 101.99, 90.34,
@@ -330,6 +339,214 @@ def called(states, go, half: int, neutral: int) -> dict:
 def require_calls(c: dict, what: str):
     require(c["del_chr2"] > 0.7 and c["amp_chr5"] > 0.7 and c["neutral_0_7"] > 0.9,
             f"{what}: planted CNVs not called: {c}")
+
+
+def make_run_object(go, n_obs: int, n_ref: int):
+    """An InferCNV object from a [G, C] counts matrix made from SEED with
+    numpy, through create_infercnv_object: gene means gamma(2, 30) as
+    make_inputs draws them, 8 observation groups of n_obs cells (obs4-obs7
+    with chr2 at 0.5x and chr5 at 2x) and 2 reference groups of n_ref.
+    Returns (object, seconds to make it)."""
+    import numpy as np
+
+    from infercnv_tpu_torch.core.object import create_infercnv_object
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    G = go.num_genes
+    means = rng.gamma(2.0, 30.0, G)
+    cnv = means.copy()
+    cnv[go.chr_gene_indices("chr2")] *= 0.5
+    cnv[go.chr_gene_indices("chr5")] *= 2.0
+    groups = [(f"obs{k}", n_obs) for k in range(8)] + [(f"ref{k}", n_ref)
+                                                      for k in range(2)]
+    C = sum(n for _, n in groups)
+    counts = np.empty((G, C), np.float64)
+    cells, ann = [], {}
+    c0 = 0
+    for name, n in groups:
+        lam = cnv if name in ("obs4", "obs5", "obs6", "obs7") else means
+        counts[:, c0:c0 + n] = rng.poisson(lam[:, None], size=(G, n))
+        for i in range(c0, c0 + n):
+            cells.append(f"c{i}")
+            ann[f"c{i}"] = name
+        c0 += n
+    table = {go.names[i]: (go.chr_names[go.chr_ids[i]], int(go.start[i]) + 1,
+                           int(go.stop[i]) + 1) for i in range(G)}
+    obj = create_infercnv_object(counts, list(go.names), cells, ann, table,
+                                 list(go.chr_names), ref_group_names=["ref0", "ref1"])
+    return obj, time.perf_counter() - t0
+
+
+def run_calls(res, neutral: int) -> dict:
+    """The planted calls of a run() result: over the cells of obs4-obs7 the
+    fraction of (cell, gene) pairs below neutral on chr2 and above it on
+    chr5, each subcluster's lowest such fraction, the neutral fraction over
+    obs0-obs3 and the references, and, from the pred_cnv_regions report,
+    the subclusters of obs4-obs7 with no chr2 loss or no chr5 gain region."""
+    import numpy as np
+
+    obj = res.infercnv_obj
+    st = res.hmm_states
+    go = obj.gene_order
+    c2, c5 = go.chr_gene_indices("chr2"), go.chr_gene_indices("chr5")
+    tumour = np.concatenate([obj.obs_groups[f"obs{k}"] for k in range(4, 8)])
+    normal = np.concatenate([obj.obs_groups[f"obs{k}"] for k in range(4)]
+                            + list(obj.ref_groups.values()))
+    subs = {n: idx for k in range(4, 8)
+            for n, idx in obj.tumor_subclusters["subclusters"][f"obs{k}"].items()}
+    per_sub = {n: ((st[idx][:, c2] < neutral).mean(), (st[idx][:, c5] > neutral).mean())
+               for n, idx in subs.items()}
+    return {"del_chr2": float((st[tumour][:, c2] < neutral).mean()),
+            "amp_chr5": float((st[tumour][:, c5] > neutral).mean()),
+            "neutral_obs0_3_refs": float((st[normal] == neutral).mean()),
+            "subclusters_obs4_7": len(subs),
+            "per_subcluster_min": {"del_chr2": float(min(v[0] for v in per_sub.values())),
+                                   "amp_chr5": float(min(v[1] for v in per_sub.values()))}}
+
+
+def report_regions(out_dir: Path, neutral: int) -> dict:
+    """{group: {(chr, "loss" | "gain")}} of a run's 17_HMM_pred
+    pred_cnv_regions report."""
+    path = next(Path(out_dir).glob("17_HMM_pred*.pred_cnv_regions.dat"))
+    found: dict = {}
+    for line in path.read_text().splitlines()[1:]:
+        group, _name, state, chrom = line.split("\t")[:4]
+        found.setdefault(group, set()).add(
+            (chrom, "loss" if int(state) < neutral else "gain"))
+    return found
+
+
+def denoised_agree(got, want, tol: float = RESID_TOL):
+    """Whether two runs' final (denoised) expr agree within rtol = atol =
+    tol, except where a value sat within tol of the denoise band's edge, so
+    that one run moved it to the band's centre and the other kept it: there
+    one side is its run's centre (the value denoise writes, the most
+    frequent one) and the other lies within 2 tol of the band's edge (the
+    nearest kept value).  Returns (ok, max error elsewhere, such places)."""
+    import numpy as np
+
+    close = np.abs(got - want) <= tol + tol * np.abs(want)
+    centres = []
+    for a in (got, want):
+        vals, counts = np.unique(a, return_counts=True)
+        c = vals[counts.argmax()]
+        centres.append((c, float(np.abs(a[a != c] - c).min())))
+    (cg, eg), (cw, ew) = centres
+    at_g, at_w = ~close & (got == cg), ~close & (want == cw)
+    flip = ((at_g & (np.abs(np.abs(want - cw) - ew) <= 2 * tol + 2 * tol * np.abs(want)))
+            | (at_w & (np.abs(np.abs(got - cg) - eg) <= 2 * tol + 2 * tol * np.abs(got))))
+    rest = ~close & ~flip
+    err = float(np.abs(got - want)[~flip].max())
+    return not rest.any(), err, int(flip.sum())
+
+
+def drive_run(obj, out_dir: Path, dev, **kw):
+    """run() on the port with the launch counts set to 0 just before it;
+    returns (result, wall seconds, launches)."""
+    import torch
+
+    from infercnv_tpu_torch.runner.pipeline import run as run_pipeline
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = run_pipeline(obj, out_dir=str(out_dir), device=dev, **RUN_KW, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return res, wall, read_launches()
+
+
+def run_phases(dev, smi, out_root: Path) -> dict:
+    """The three run() phases; returns each full-width phase's launches."""
+    import filecmp
+
+    import numpy as np
+    import torch
+
+    from infercnv_tpu_torch.runner.pipeline import run as run_pipeline
+
+    launches = {}
+    # ---- run_i6_subclusters: i6, qnorm subclusters, bench genome --------
+    go = bench_genome()
+    obj, make_s = make_run_object(go, RUN_OBS, RUN_REF)
+    res, wall, n = drive_run(obj, out_root / "run_i6_subclusters", dev, HMM=True,
+                             HMM_type="i6", analysis_mode="subclusters",
+                             tumor_subcluster_partition_method="qnorm")
+    launches["run_i6_subclusters"] = n
+    for k in ("residual_fused", "viterbi", "smooth_banded", "row_median"):
+        require(n[k] > 0, f"{k} was not launched by run_i6_subclusters")
+    C, G = res.infercnv_obj.expr.shape
+    require(bool(np.isfinite(res.infercnv_obj.expr).all()),
+            "run_i6_subclusters: the final expr is not finite")
+    calls = run_calls(res, neutral=3)
+    sub = calls["per_subcluster_min"]
+    require(sub["del_chr2"] > 0.7 and sub["amp_chr5"] > 0.7
+            and calls["neutral_obs0_3_refs"] > 0.9,
+            f"run_i6_subclusters: planted CNVs not called: {calls}")
+    regions = report_regions(out_root / "run_i6_subclusters", 3)
+    missing = [s for k in range(4, 8)
+               for s in res.infercnv_obj.tumor_subclusters["subclusters"][f"obs{k}"]
+               if not {("chr2", "loss"), ("chr5", "gain")} <= regions.get(s, set())]
+    require(not missing, f"run_i6_subclusters: no chr2 loss / chr5 gain region "
+            f"reported for {missing[:5]}")
+    emit(phase="run_i6_subclusters", card=smi, cells=C, genes=G, launches=n,
+         make_object_s=make_s, wall_s=wall, step_seconds=res.timer.records,
+         called=calls)
+    del obj, res
+
+    # ---- run_i3_coords_cells: i3, coordinates smoothing, cells mode -----
+    hgo = human_like_genome(8448)
+    obj, make_s = make_run_object(hgo, RUN_OBS, RUN_REF)
+    res, wall, n = drive_run(obj, out_root / "run_i3_coords_cells", dev, HMM=True,
+                             HMM_type="i3", smooth_method="coordinates",
+                             analysis_mode="cells")
+    launches["run_i3_coords_cells"] = n
+    for k in ("smooth_general", "row_median", "viterbi"):
+        require(n[k] > 0, f"{k} was not launched by run_i3_coords_cells")
+    C, G = res.infercnv_obj.expr.shape
+    require(bool(np.isfinite(res.infercnv_obj.expr).all())
+            and int(res.hmm_states.max()) <= 3,
+            "run_i3_coords_cells: non-finite expr or states beyond i3's")
+    calls = run_calls(res, neutral=2)
+    require(calls["del_chr2"] > 0.7 and calls["amp_chr5"] > 0.7,
+            f"run_i3_coords_cells: planted CNVs not called: {calls}")
+    # The i3 model calls single normal cells neutral on about 74% of their
+    # genes, and the JAX package does the same on this object (the per-cell
+    # smoothed residual runs past mu +- 1.645 sigma for long stretches):
+    # the 0.9 neutral threshold is reported, met or missed, not enforced.
+    neutral_met = calls["neutral_obs0_3_refs"] > 0.9
+    if not neutral_met:
+        print("chip_smoke: run_i3_coords_cells: the neutral share of obs0-obs3 "
+              f"and the references is {calls['neutral_obs0_3_refs']:.4f}, not "
+              "above 0.9 (reported, not enforced)", file=sys.stderr, flush=True)
+    emit(phase="run_i3_coords_cells", card=smi, cells=C, genes=G, launches=n,
+         make_object_s=make_s, wall_s=wall, step_seconds=res.timer.records,
+         called=calls, neutral_above_0_9=neutral_met)
+    del obj, res
+
+    # ---- run_reference: 1,024 cells, the card against the CPU -----------
+    obj, _ = make_run_object(go, RUN_CHECK_OBS, RUN_CHECK_REF)
+    kw = dict(HMM=True, HMM_type="i6", analysis_mode="subclusters",
+              tumor_subcluster_partition_method="qnorm", **RUN_KW)
+    dirs = {d: out_root / f"run_reference_{d}" for d in ("card", "cpu")}
+    rg = run_pipeline(obj, out_dir=str(dirs["card"]), device=dev, **kw)
+    rc = run_pipeline(obj, out_dir=str(dirs["cpu"]), device="cpu", **kw)
+    eg, ec = rg.infercnv_obj.expr, rc.infercnv_obj.expr
+    ok, err, flips = denoised_agree(eg, ec)
+    require(ok, f"run_reference: card and CPU final expr differ (max {err} "
+            f"away from the denoise band's edge)")
+    same = bool(np.array_equal(rg.hmm_states, rc.hmm_states))
+    require(same, "run_reference: card and CPU HMM states differ")
+    reports = sorted(p.name for p in dirs["cpu"].glob("17_HMM_pred*"))
+    equal = [f for f in reports if filecmp.cmp(dirs["card"] / f, dirs["cpu"] / f,
+                                                shallow=False)]
+    require(len(reports) == 4 and equal == reports,
+            f"run_reference: region reports differ: {sorted(set(reports) - set(equal))}")
+    emit(phase="run_reference", cells=int(eg.shape[0]), expr_max_abs_err=err,
+         denoise_edge_flips=flips, states_equal=same, reports_byte_equal=equal)
+    torch.cuda.empty_cache()
+    return launches
 
 
 def warm_up(engine, inp) -> float:
@@ -1145,6 +1362,13 @@ def run(dev) -> int:
     emit(phase="coords_reference", cells=N_CHECK, transform_max_abs_err=err,
          full_chunk_states_equal=states_same, group_states_equal=same)
 
+    # ---- run(): the pipeline around the engine ---------------------------
+    del inp, cin, win, be, counts_a, counts_b, ref_counts
+    torch.cuda.empty_cache()
+    runs_dir = ROOT / "build" / "chip_smoke_runs"
+    shutil.rmtree(runs_dir, ignore_errors=True)
+    run_launches = run_phases(dev, smi, runs_dir)
+
     # ---- kernel table, card, result ------------------------------------
     table = []
     for name, (src, replaces, phase) in KERNELS.items():
@@ -1152,6 +1376,7 @@ def run(dev) -> int:
         b_ms, b_by = r["bound"]
         table.append(dict(name=name, route="cuda", source=src, replaces=replaces,
                           launches=path_launches[phase][name], launch_phase=phase,
+                          run_launches={k: v[name] for k, v in run_launches.items()},
                           max_abs_err=r["max_abs_err"], ms=r["ms"],
                           plain_ms=r["plain_ms"], bound_ms=b_ms, bound_by=b_by,
                           library_ms=r["library_ms"]))

@@ -9,9 +9,13 @@ Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; on the CPU every kernel wrapper runs its plain PyTorch
 version instead.
 
-Ported so far: the default streaming engine
+Ported so far: the streaming engine
 (:class:`infercnv_tpu_torch.parallel.engine.CnvEngine`: reference
-statistics, residual chunks, subcluster sums and the group-mean Viterbi).
+statistics, residual chunks, subcluster sums and the group-mean Viterbi),
+the ``InferCNV`` object and its loaders, and ``runner.pipeline.run`` on the
+engine path (the hspike, the hclust subclusters, the i6/i3 HMM and the
+region reports); ``run`` refuses the options whose modules are not ported
+yet.
 """
 
 from infercnv_tpu_torch.device import resolve_device

@@ -1,7 +1,7 @@
 """Gene-order / genome model.
 
-Copied from infercnv_tpu/core/genome.py (``GeneOrder``, lines 19-94), which
-is plain numpy; the port keeps its own copy so that it never imports the JAX
+Copied from infercnv_tpu/core/genome.py (``GeneOrder``, lines 19-94, and
+``order_reduce``, lines 97-136), which is plain numpy; the port keeps its own copy so that it never imports the JAX
 package.
 
 The reference stores a ``gene_order`` data.frame (chr factor, start, stop) in
@@ -14,7 +14,7 @@ per-chromosome [begin, end) ranges.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
@@ -95,3 +95,45 @@ class GeneOrder:
             hash(self.start.tobytes()),
             hash(self.stop.tobytes()),
         )
+
+
+def order_reduce(
+    expr: np.ndarray,
+    gene_names: Sequence[str],
+    gene_order_table: Dict[str, Tuple[str, int, int]],
+    chr_order: Sequence[str],
+) -> Tuple[np.ndarray, GeneOrder, np.ndarray]:
+    """Order genes of `expr` ([G, C]) genomically and drop unmatched genes.
+
+    Mirrors ``.order_reduce`` (reference R/inferCNV.R:352-428): genes present in
+    both the matrix and order table are kept; genes with start+stop == 0 are
+    dropped; ordering is (chr in file order, start, stop) with a stable sort.
+
+    Returns (expr_reordered [G', C], GeneOrder, kept_row_indices).
+    """
+    chr_level = {c: i for i, c in enumerate(chr_order)}
+    keep: List[Tuple[int, int, int, int]] = []  # (chr_lvl, start, stop, row)
+    for row, g in enumerate(gene_names):
+        ent = gene_order_table.get(g)
+        if ent is None:
+            continue
+        chrom, start, stop = ent
+        if start + stop == 0:
+            continue
+        lvl = chr_level.get(chrom)
+        if lvl is None:
+            continue
+        keep.append((lvl, int(start), int(stop), row))
+    if not keep:
+        raise ValueError("Error, no gene names match between matrix and gene order table")
+    keep.sort(key=lambda t: (t[0], t[1], t[2]))
+    rows = np.array([t[3] for t in keep], dtype=np.int64)
+    names = tuple(gene_names[r] for r in rows)
+    go = GeneOrder(
+        names=names,
+        chr_names=tuple(chr_order),
+        chr_ids=np.array([t[0] for t in keep], np.int32),
+        start=np.array([t[1] for t in keep], np.int64),
+        stop=np.array([t[2] for t in keep], np.int64),
+    )
+    return expr[rows, :], go, rows

@@ -1,14 +1,19 @@
-"""HMM parameters for the i6 and i3 CNV-state models, and the per-group
-Viterbi (partial port).
+"""HMM parameters for the i6 and i3 CNV-state models, their calibration
+from the hspike, and the Viterbi drivers.
 
 Copied from infercnv_tpu/models/hmm.py (plain numpy and scipy): the state
-levels and proxy values (lines 35-39), ``HMMParams`` and
+levels and proxy values (lines 35-39), the hspike statistics
+``gene_expr_by_cnv`` and ``get_spike_dists`` (:46-69), ``HMMParams`` and
 ``state_emission_sds`` (:102-138), the i6 and i3 parameterisations
 (:141-191), ``viterbi_per_group`` with its packed implementation (:331-386,
-here over ops/viterbi_pack.py and the CUDA Viterbi) and the proxy-value maps
-(:545-561).  Not ported yet: the hspike statistics (``get_spike_dists``,
-``cnv_mean_sd_trend_fit``), ``impl="perchr"`` and the ``predict_hmm_*``
-drivers, which need ``InferCNV``.
+here over ops/viterbi_pack.py and the CUDA Viterbi), ``GroupedStates`` and
+the drivers ``predict_hmm_on_cells`` and ``predict_hmm_on_groups``
+(:414-491), and the proxy-value maps (:545-561).  ``cnv_mean_sd_trend_fit``
+(:72-99) bootstraps with a ``torch.Generator`` on the CPU where the
+reference draws with ``jax.random``, so its fits agree with the reference's
+to the bootstrap's spread.  Not ported yet: ``impl="perchr"`` and
+``predict_hmm_on_subclusters_per_chr``, which needs the per-chromosome
+Leiden partitions (ROADMAP A6).
 
 reference: R/inferCNV_HMM.R — i6 states <-> CNV levels {0, 0.5, 1, 1.5, 2, 3};
 R/inferCNV_i3HMM.R — i3 states {del, neutral, amp}; Viterbi.dthmm.adj
@@ -18,18 +23,78 @@ R/inferCNV_i3HMM.R — i3 states {del, neutral, amp}; Viterbi.dthmm.adj
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from infercnv_tpu_torch.device import DeviceLike, resolve_device
+from infercnv_tpu_torch.utils.logging import log_info
 
 I6_LEVELS = ("cnv:0.01", "cnv:0.5", "cnv:1", "cnv:1.5", "cnv:2", "cnv:3")
 I6_PROXY_VALUES = np.array([0.0, 0.5, 1.0, 1.5, 2.0, 3.0])
 I3_PROXY_VALUES = np.array([0.5, 1.0, 1.5])
 NEUTRAL_STATE_I6 = 3  # 1-based, as reported
 NEUTRAL_STATE_I3 = 2
+
+
+# ---------------------------------------------------------------------------
+# emission calibration from the hspike
+# ---------------------------------------------------------------------------
+
+def gene_expr_by_cnv(hspike) -> Dict[str, np.ndarray]:
+    """Residual expr values of hspike *tumor* cells pooled per CNV level
+    (reference .get_gene_expr_by_cnv :45-68)."""
+    from infercnv_tpu_torch.models.hspike import HSPIKE_GENES_PER_CHR, hspike_chr_info
+
+    info = hspike_chr_info(HSPIKE_GENES_PER_CHR, 1)
+    spike_idx = hspike.all_obs_idx()
+    expr = hspike.expr[spike_idx]  # [C_spike, G]
+    by_cnv: Dict[str, List[np.ndarray]] = {}
+    for (name, cnv, _n) in info:
+        key = f"cnv:{cnv:g}"
+        if name not in hspike.gene_order.chr_names:
+            continue
+        gidx = hspike.gene_order.chr_gene_indices(name)
+        if gidx.size == 0:
+            continue
+        by_cnv.setdefault(key, []).append(expr[:, gidx].ravel())
+    return {k: np.concatenate(v) for k, v in by_cnv.items()}
+
+
+def get_spike_dists(hspike) -> Dict[str, Tuple[float, float]]:
+    """{cnv_level: (mean, sd)} (reference get_spike_dists :15-31; sd ddof=1)."""
+    out = {}
+    for k, vals in gene_expr_by_cnv(hspike).items():
+        out[k] = (float(vals.mean()), float(vals.std(ddof=1)))
+    return out
+
+
+def cnv_mean_sd_trend_fit(hspike, seed: int = 777, nrounds: int = 100,
+                          max_cells: int = 100) -> Dict[str, Tuple[float, float]]:
+    """Per CNV level, fit log(sd of n-cell means) ~ log(n); returns
+    {level: (intercept, slope)}.
+
+    reference get_hspike_cnv_mean_sd_trend_by_num_cells_fit (:154-212):
+    bootstrap-sample n values, sd over 100 replicates, for n = 1..100, then
+    lm(log(sd) ~ log(n)).  As in the JAX package, the bootstrap is one
+    [nrounds, max_cells] draw per level whose prefix means give every n at
+    once; the draws come from a CPU ``torch.Generator`` seeded with `seed`.
+    """
+    gen = torch.Generator().manual_seed(int(seed))
+    fits: Dict[str, Tuple[float, float]] = {}
+    logn = np.log(np.arange(1, max_cells + 1))
+    X = np.stack([np.ones_like(logn), logn], axis=1)
+    steps = torch.arange(1, max_cells + 1, dtype=torch.float32)
+    for lvl, vals in gene_expr_by_cnv(hspike).items():
+        v = torch.as_tensor(np.asarray(vals, np.float32))
+        idx = torch.randint(0, v.shape[0], (nrounds, max_cells), generator=gen)
+        prefix_means = torch.cumsum(v[idx], dim=1) / steps   # [rounds, n]
+        sds = prefix_means.std(dim=0, correction=1).numpy()  # [n]
+        y = np.log(np.maximum(sds, 1e-12))
+        beta, *_ = np.linalg.lstsq(X, y, rcond=None)
+        fits[lvl] = (float(beta[0]), float(beta[1]))
+    return fits
 
 
 def state_emission_sds(num_cells: int, trend_fits: Dict[str, Tuple[float, float]],
@@ -142,6 +207,87 @@ def viterbi_per_group(x_bg, gene_order, params: HMMParams,
         get_layout(gene_order), np.asarray(params.means, np.float32),
         torch.as_tensor(sigma_rows.astype(np.float32)).to(dev), params.t)
     return states.cpu().numpy().astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# prediction drivers (cell / subcluster / sample modes)
+# ---------------------------------------------------------------------------
+
+def _group_mean_rows(expr_cg: np.ndarray, groups: Dict[str, np.ndarray]
+                     ) -> Tuple[np.ndarray, List[str], List[np.ndarray]]:
+    names = list(groups.keys())
+    idxs = [np.asarray(groups[n]) for n in names]
+    rows = np.stack([expr_cg[ix].mean(axis=0) for ix in idxs])
+    return rows, names, idxs
+
+
+@dataclasses.dataclass
+class GroupedStates:
+    """Factorized HMM state calls: one state row per group plus a cell->row
+    map (group-mode calls are constant across a group's cells, so the
+    [C, G] matrix is redundant; the region reports read this form)."""
+
+    rows: np.ndarray          # [K, G] int8, 1-based states
+    cell_to_row: np.ndarray   # [C] int32
+    names: List[str]
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.cell_to_row.shape[0], self.rows.shape[1])
+
+    def materialize(self) -> np.ndarray:
+        """Expand to the classic [C, G] matrix (one gather)."""
+        return self.rows[self.cell_to_row]
+
+
+def predict_hmm_on_cells(obj, params: HMMParams,
+                         device: DeviceLike = None) -> np.ndarray:
+    """Per-cell i6/i3 state matrix [C, G] int8
+    (reference predict_CNV_via_HMM_on_indiv_cells :284-324)."""
+    log_info("predict_hmm_on_cells()")
+    return np.asarray(
+        viterbi_per_group(obj.expr, obj.gene_order, params, device=device),
+        np.int8)
+
+
+def predict_hmm_on_groups(
+    obj,
+    params: HMMParams,
+    groups: Dict[str, np.ndarray],
+    trend_fits: Optional[Dict[str, Tuple[float, float]]] = None,
+    levels: Sequence[str] = I6_LEVELS,
+    factorized: bool = False,
+    device: DeviceLike = None,
+):
+    """Viterbi on per-group mean expression, states written back to every
+    member cell (reference predict_CNV_via_HMM_on_tumor_subclusters :345-408
+    / ..._whole_tumor_samples :509-567).  With trend_fits, per-group state
+    sds follow the cell-count trend (.get_state_emission_params).  The
+    group means are numpy means of the f32 rows, as the reference takes
+    them.  factorized=True returns :class:`GroupedStates`."""
+    log_info(f"predict_hmm_on_groups() over {len(groups)} groups")
+    rows, names, idxs = _group_mean_rows(obj.expr, groups)
+    if trend_fits is not None:
+        group_sds = np.stack([
+            state_emission_sds(len(ix), trend_fits, levels) for ix in idxs
+        ])
+    else:
+        group_sds = None
+    states_rows = np.asarray(
+        viterbi_per_group(rows, obj.gene_order, params, group_sds,
+                          device=device),
+        np.int8)
+    neutral = (params.num_states - 1) // 2 + 1
+    # cells outside every group (none in practice) keep the neutral row
+    K = states_rows.shape[0]
+    cell_to_row = np.full(obj.num_cells, K, np.int32)
+    for r, ix in enumerate(idxs):
+        cell_to_row[ix] = r
+    if (cell_to_row == K).any():
+        states_rows = np.concatenate(
+            [states_rows, np.full((1, states_rows.shape[1]), neutral, np.int8)])
+    gs = GroupedStates(rows=states_rows, cell_to_row=cell_to_row, names=names)
+    return gs if factorized else gs.materialize()
 
 
 def proxy_value_lut(num_states: int = 6) -> np.ndarray:

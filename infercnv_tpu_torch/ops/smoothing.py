@@ -22,6 +22,11 @@ to bf16 (the reference's ``matmul_dtype="bfloat16"``): every smooth with
 them rounds x to bf16 as well, so each product is exact and only the f32
 sums round.
 
+``smooth_by_chromosome`` and ``smooth_by_chromosome_coordinates`` (the
+reference's lines 214-232) smooth a matrix on a device with the route the
+engine takes for the same band (``smooth_route``): the one-row kernel where
+it takes the band, else the tiled one.
+
 reference: smooth_by_chromosome (R/inferCNV_ops.R:2406-2434) and
 smooth_by_chromosome_coordinates (:2534-2622).
 """
@@ -34,8 +39,14 @@ import functools
 import numpy as np
 import torch
 
+from infercnv_tpu_torch.device import DeviceLike, resolve_device
 from infercnv_tpu_torch.ops import _build
-from infercnv_tpu_torch.ops.layout import LANE, BandedGeneOperator
+from infercnv_tpu_torch.ops.layout import (
+    LANE,
+    BandedGeneOperator,
+    coordinate_smoothing_operator,
+    smoothing_operator,
+)
 
 #: launches of each CUDA kernel (the plain version does not count):
 #: smooth_banded.cu in f32 (TPU kernel 3) and with bf16 operands (kernel 4),
@@ -54,6 +65,9 @@ GENERAL_WARP = 32
 #: all of them)
 SPAN_COORDS = 1024
 BF16_ROWS = 4
+#: shared memory a block may opt in to on an H100 (227 KB): the capacity the
+#: routes are planned with on the CPU; a CUDA device reports its own
+SMEM_OPTIN_BYTES = 232_448
 
 
 def _round4(v: int) -> int:
@@ -497,3 +511,65 @@ def apply_banded_general(x: torch.Tensor, w: BandWeights) -> torch.Tensor:
     _build.check(rc, "smooth_general")
     LAUNCHES_GENERAL += 1
     return y
+
+
+def smooth_route(w: BandWeights, smem_optin: int) -> str:
+    """The smooth a band takes: "row" (one row a block, smooth_banded.cu)
+    for halfbands of at most 64 where the row kernel fits the card, else
+    "general" (smooth_general.cu)."""
+    return ("row" if w.side_tiles == 1 and w.halfband <= 64
+            and w.row_kernel_fits(smem_optin) else "general")
+
+
+def card_smem(device: torch.device) -> int:
+    """Opt-in shared memory of a CUDA device; the H100's on the CPU."""
+    return (_build.max_smem_optin(device) if device.type == "cuda"
+            else SMEM_OPTIN_BYTES)
+
+
+#: (band key, device) -> (BandWeights, route) of smooth_by_chromosome*
+_WEIGHTS: dict = {}
+
+
+def _smooth_with(x, key, op_fn, device: DeviceLike) -> torch.Tensor:
+    if torch.is_tensor(x) and device is None:
+        dev = x.device
+    else:
+        dev = resolve_device(device)
+    hit = _WEIGHTS.get((key, dev))
+    if hit is None:
+        if len(_WEIGHTS) >= 16:
+            _WEIGHTS.clear()
+        w = BandWeights.from_operator(op_fn(), dev)
+        hit = _WEIGHTS[(key, dev)] = (w, smooth_route(w, card_smem(dev)))
+    w, route = hit
+    x = (x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x, np.float32)))
+    x = x.to(device=dev, dtype=torch.float32).contiguous()
+    return apply_banded(x, w) if route == "row" else apply_banded_general(x, w)
+
+
+def smooth_by_chromosome(x, gene_order, window_length: int = 101,
+                         method: str = "pyramidinal",
+                         device: DeviceLike = None) -> torch.Tensor:
+    """Smooth [C, G] expression along the genomically ordered gene axis
+    (reference infercnv_tpu/ops/smoothing.py:214-226).
+
+    method: 'pyramidinal' (triangular window, renormalized at chromosome
+    ends) or 'runmeans' (flat window, same end handling).  Runs on `device`
+    (a tensor's own device when None; CUDA for a numpy input)."""
+    key = ("window", gene_order.fingerprint(), window_length, method)
+    return _smooth_with(
+        x, key, lambda: smoothing_operator(gene_order, window_length, method),
+        device)
+
+
+def smooth_by_chromosome_coordinates(x, gene_order,
+                                     window_length: int = 10_000_000,
+                                     device: DeviceLike = None) -> torch.Tensor:
+    """The bp-coordinate triangular smoother (reference
+    infercnv_tpu/ops/smoothing.py:229-231); a wide band, so the tiled
+    kernel."""
+    key = ("coordinates", gene_order.fingerprint(), window_length)
+    return _smooth_with(
+        x, key, lambda: coordinate_smoothing_operator(gene_order, window_length),
+        device)

@@ -70,9 +70,11 @@ from infercnv_tpu_torch.ops.residual_fused import (
     where_bounds,
 )
 from infercnv_tpu_torch.ops.smoothing import (
+    SMEM_OPTIN_BYTES,
     BandWeights,
     apply_banded,
     apply_banded_general,
+    smooth_route,
 )
 from infercnv_tpu_torch.ops.viterbi_pack import PackedLayout, viterbi_packed
 
@@ -81,9 +83,6 @@ _OUT_DTYPES = {"float32": torch.float32, "float16": torch.float16,
 _NARROW_COUNTS = (torch.uint16, torch.int16, torch.int32, torch.uint32)
 #: above this many reference elements the statistics stream over chunks
 _STREAM_REF_ELEMENTS = 250_000_000
-#: shared memory a block may opt in to on an H100 (227 KB): the capacity the
-#: engine plans its routes with on the CPU; a CUDA device reports its own
-SMEM_OPTIN_BYTES = 232_448
 
 Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -126,9 +125,6 @@ class CnvEngine:
                  device: DeviceLike = None):
         if config.matmul_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unsupported matmul_dtype {config.matmul_dtype}")
-        if 32 % config.median_radix_bits:
-            raise ValueError(
-                f"median_radix_bits must divide 32, got {config.median_radix_bits}")
         if config.out_dtype not in _OUT_DTYPES:
             raise ValueError(f"unsupported out_dtype {config.out_dtype}")
         self.device = resolve_device(device)
@@ -157,9 +153,7 @@ class CnvEngine:
                 if self.device.type == "cuda" else SMEM_OPTIN_BYTES)
         #: the smooth of ref_stats and of the unfused routes: "row" (one row
         #: a block, smooth_banded.cu) or "general" (smooth_general.cu)
-        self.smooth_route = ("row" if op.side_tiles == 1 and op.halfband <= 64
-                             and self._w_smooth.row_kernel_fits(smem)
-                             else "general")
+        self.smooth_route = smooth_route(self._w_smooth, smem)
         #: the residual's route: "fused", "wide_genome" or "wide_band"
         if op.side_tiles == 1 and _fused.fits(self._w_fused, smem):
             self.residual_route = "fused"

@@ -1,0 +1,593 @@
+"""The run() pipeline driver on the streaming engine.
+
+Counterpart of infercnv_tpu/runner/pipeline.py (``RunResult`` and ``run``,
+lines 33-1121) for the configurations that take the engine's fast path
+(``_engine_fast_ok``, :138-166):
+
+  * steps 1-3: the gene filters, the depth factor and the hspike (i6);
+  * steps 4-14: the ``CnvEngine`` transform streamed in cell chunks on the
+    device (``_run_engine_residual``), and the same chain on the hspike
+    (``_hspike_residual_chain``);
+  * step 15: the hclust partitions 'qnorm', 'pheight', 'qgamma' and 'none';
+  * step 17: the i6 or i3 HMM on groups, subclusters or cells, with the
+    region reports;
+  * step 20: the lazy proxy values; step 22: denoise; step 23: return.
+
+The object stays numpy on the host, as the reference keeps it; rows move to
+the device only inside the steps that compute there.  Host statistics (the
+library sizes and depth factor, the group means of the HMM, the z-score
+gene filter, the region reports, denoise) are the reference's numpy,
+dtypes included.  ``run(..., device="cpu")`` runs every kernel's plain
+version; ``device=None`` runs on CUDA and raises without it.
+
+Options whose modules are not ported yet are refused before any work with a
+NotImplementedError naming the ROADMAP item (``_refuse_unported``): the
+checkpoints and RDS output, the plots, the Bayesian filter (A7), the DE
+mask and every configuration that leaves the engine's fast path (A5), the
+Leiden and random_trees partitions and the per-chromosome subclusters (A6),
+the device mesh (A8) and the splatter simulation (A9).
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from infercnv_tpu_torch.core.object import InferCNV
+from infercnv_tpu_torch.device import DeviceLike, resolve_device
+from infercnv_tpu_torch.models import hmm as hmm_mod
+from infercnv_tpu_torch.models.hspike import build_hspike
+from infercnv_tpu_torch.ops import transforms as T
+from infercnv_tpu_torch.ops.smoothing import smooth_by_chromosome
+from infercnv_tpu_torch.report.regions import generate_cnv_region_reports
+from infercnv_tpu_torch.runner.config import RunConfig
+from infercnv_tpu_torch.subcluster.partition import (
+    PHASE_TIMES,
+    define_tumor_subclusters,
+)
+from infercnv_tpu_torch.utils.logging import log_info, set_debug
+from infercnv_tpu_torch.utils.profiling import StepTimer
+
+
+class RunResult:
+    """Outputs of run(): the final denoised object, plus HMM products.
+
+    ``hmm_states`` / ``hmm_proxy_values`` are materialized lazily:
+    subcluster- and sample-mode runs keep the factorized per-group state
+    rows (models.hmm.GroupedStates), and the [C, G] matrices are expanded
+    only on first attribute access."""
+
+    def __init__(self):
+        self.infercnv_obj: Optional[InferCNV] = None
+        self._hmm_states = None           # ndarray [C, G] or GroupedStates
+        self._proxy_num_states: Optional[int] = None
+        self._hmm_proxy_values: Optional[np.ndarray] = None
+        self.hmm_gene_order = None
+        self.subclusters_per_chr = None
+        self.region_reports = None
+        self.timer = None
+
+    @property
+    def hmm_states(self) -> Optional[np.ndarray]:
+        """[C, G] 1-based state matrix (int8)."""
+        if self._hmm_states is not None and hasattr(self._hmm_states, "materialize"):
+            self._hmm_states = self._hmm_states.materialize()
+        return self._hmm_states
+
+    @hmm_states.setter
+    def hmm_states(self, value) -> None:
+        self._hmm_states = value
+
+    @property
+    def hmm_proxy_values(self) -> Optional[np.ndarray]:
+        """[C, G] CNV proxy levels (float32)."""
+        if self._hmm_proxy_values is None and self._hmm_states is not None \
+                and self._proxy_num_states:
+            self._hmm_proxy_values = hmm_mod.assign_states_to_proxy_values(
+                self.hmm_states, self._proxy_num_states)
+        return self._hmm_proxy_values
+
+    @hmm_proxy_values.setter
+    def hmm_proxy_values(self, value) -> None:
+        self._hmm_proxy_values = value
+
+
+def _host(a) -> np.ndarray:
+    """A tensor on any device, or an array, as a host numpy array."""
+    if torch.is_tensor(a):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def _engine_fast_ok(cfg: RunConfig) -> bool:
+    """True when steps 4-14 can run as one engine pass per cell chunk
+    (copied from the reference, :138-166; the port has no resume, so no
+    step is ever skipped)."""
+    if cfg.use_engine is False:
+        return False
+    ok = (not cfg.scale_data
+          and cfg.num_ref_groups is None
+          and not (cfg.analysis_mode == "subclusters"
+                   and cfg.tumor_subcluster_partition_method == "random_trees")
+          and not cfg.remove_genes_at_chr_ends
+          and not cfg.prune_outliers
+          and cfg.smooth_method in ("pyramidinal", "runmeans", "coordinates")
+          and isinstance(cfg.max_centered_threshold, (int, float))
+          and not isinstance(cfg.max_centered_threshold, bool)
+          and not cfg.plot_steps
+          and cfg.up_to_step >= 15)
+    if cfg.use_engine is True and not ok:
+        raise ValueError(
+            "use_engine=True but the configuration requires op-by-op steps "
+            "(scale_data / num_ref_groups / random_trees / chr-end trimming / "
+            "outlier pruning / auto threshold / plot_steps / up_to_step<15 "
+            "are engine-incompatible)")
+    return ok
+
+
+def _refuse_unported(cfg: RunConfig) -> None:
+    """Raise NotImplementedError for the first option whose module the port
+    does not have yet, before run() does any work."""
+    def refuse(option: str, item: str, what: str):
+        raise NotImplementedError(
+            f"{option} is not ported yet: {what} (ROADMAP {item})")
+
+    if cfg.save_rds:
+        refuse("save_rds=True (and with it save_final_rds)", "A7",
+               "checkpoints and RDS output; pass save_rds=False")
+    if not cfg.no_plot:
+        refuse("no_plot=False", "A7", "the heatmaps; pass no_plot=True")
+    if cfg.HMM and cfg.BayesMaxPNormal > 0:
+        refuse("BayesMaxPNormal > 0 with HMM", "A7",
+               "the Bayesian filter; pass BayesMaxPNormal=0")
+    if cfg.mask_nonDE_genes:
+        refuse("mask_nonDE_genes", "A5", "the DE mask of step 21")
+    if (cfg.analysis_mode == "subclusters"
+            and cfg.tumor_subcluster_partition_method in ("leiden", "random_trees")):
+        refuse(f"tumor_subcluster_partition_method="
+               f"{cfg.tumor_subcluster_partition_method!r}", "A6",
+               "use 'qnorm', 'pheight', 'qgamma' or 'none'")
+    if cfg.per_chr_hmm_subclusters:
+        refuse("per_chr_hmm_subclusters", "A6", "the per-chromosome Leiden")
+    if cfg.n_devices or cfg.mesh is not None:
+        refuse("n_devices / mesh", "A8", "more than one device")
+    if (cfg.sim_method == "splatter" and cfg.up_to_step >= 3
+            and ((cfg.HMM and cfg.HMM_type == "i6") or cfg.sim_foreground)):
+        refuse("sim_method='splatter'", "A9", "the splatter simulation")
+    if cfg.up_to_step >= 4 and not _engine_fast_ok(cfg):
+        refuse("this configuration", "A5",
+               "it leaves the engine's fast path for the op-by-op steps 4-14 "
+               "(use_engine=False, up_to_step 4-14, scale_data, "
+               "num_ref_groups, chr-end trimming, outlier pruning, an 'auto' "
+               "or None max_centered_threshold, or plot_steps)")
+
+
+def _ref_onehot(obj: InferCNV) -> np.ndarray:
+    """reference subtract_ref_expr_from_obs (inferCNV_ops.R:1678-1702):
+    refless fallback uses the mean over all (observation) cells."""
+    if obj.has_reference_cells():
+        groups = list(obj.ref_groups.values())
+    else:
+        groups = [obj.all_obs_idx()]
+    return T.group_onehot(groups, obj.num_cells)
+
+
+def _hspike_residual_chain(h: InferCNV, cfg: RunConfig, threshold: float,
+                           dev: torch.device) -> None:
+    """Apply the step 4-14 transform chain to the hspike child on the
+    device, as the reference does on host (:169-182): log, subtract,
+    clamp, smooth (kernel 3 or 5), median centring (kernel 7), subtract,
+    unlog."""
+    M = _ref_onehot(h)
+    bounds = cfg.ref_subtract_use_mean_bounds
+
+    def subtract(x):
+        return T.subtract_ref_expr(x, T.ref_group_gene_means(x, M), bounds)
+
+    x = subtract(T.log2xplus1(h.expr, dev))
+    x = T.apply_max_threshold_bounds(x, float(threshold))
+    if cfg.smooth_method == "coordinates":
+        x = smooth_by_chromosome(x, h.gene_order, 51, "pyramidinal")
+    else:
+        method = "runmeans" if cfg.smooth_method == "runmeans" else "pyramidinal"
+        x = smooth_by_chromosome(x, h.gene_order, cfg.window_length, method)
+    x = subtract(T.center_cells(x, "median"))
+    h.expr = _host(T.invert_log2(x))
+
+
+def _norm_factor(obj: InferCNV) -> float:
+    """Depth-norm factor = median library size (inferCNV_ops.R:3095), from
+    the reference's host float32 sums (:197-212)."""
+    return float(np.median(obj.expr.sum(axis=1)))
+
+
+def _stream_cpu(engine, src: np.ndarray, out: np.ndarray, chunk: int,
+                nf: float, ml, mr) -> Dict[str, float]:
+    for b in range(0, src.shape[0], chunk):
+        r = engine.transform_chunk(src[b:b + chunk], nf, ml, mr)
+        out[b:b + r.shape[0]] = r.float().numpy()
+    return {}
+
+
+def _stream_cuda(engine, src: np.ndarray, out: np.ndarray, chunk: int,
+                 nf: float, ml, mr) -> Dict[str, float]:
+    """Stream the chunks through the card with the copies overlapped: each
+    chunk is staged into one of two pinned host buffers, uploaded on a copy
+    stream, transformed on the current stream and downloaded into one of
+    two pinned buffers on a second copy stream, so the copies of chunk i+1
+    and i-1 run beside chunk i's kernels (the reference double-buffers,
+    :296-327).  Returns the summed seconds of each part (CUDA events for
+    the card's, the host clock for the pinned staging)."""
+    dev = engine.device
+    C, G = src.shape
+    odt = {"float32": torch.float32, "float16": torch.float16,
+           "bfloat16": torch.bfloat16}[engine.config.out_dtype]
+    rows = min(chunk, C)
+    comp = torch.cuda.current_stream(dev)
+    h2d, d2h = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+    pin_in = [torch.empty((rows, G), dtype=torch.float32, pin_memory=True)
+              for _ in range(2)]
+    pin_out = [torch.empty((rows, G), dtype=odt, pin_memory=True)
+               for _ in range(2)]
+    dev_in = [torch.empty((rows, G), dtype=torch.float32, device=dev)
+              for _ in range(2)]
+
+    def event():
+        return torch.cuda.Event(enable_timing=True)
+
+    uploaded = [None, None]   # H2D of a slot's pinned buffer done
+    consumed = [None, None]   # the kernels done reading a slot's device buffer
+    spans = []                # (name, start event, end event)
+    host = {"stage": 0.0, "drain": 0.0}
+    pending = []              # (slot, first row, rows, D2H done event)
+
+    def drain(slot, b, nb, done):
+        done.synchronize()
+        t0 = time.perf_counter()
+        torch.from_numpy(out[b:b + nb]).copy_(pin_out[slot][:nb])
+        host["drain"] += time.perf_counter() - t0
+
+    for i, b in enumerate(range(0, C, chunk)):
+        s = i % 2
+        nb = min(chunk, C - b)
+        if uploaded[s] is not None:
+            uploaded[s].synchronize()      # chunk i-2's upload left pin_in[s]
+        t0 = time.perf_counter()
+        pin_in[s][:nb].copy_(torch.from_numpy(src[b:b + nb]))
+        host["stage"] += time.perf_counter() - t0
+        with torch.cuda.stream(h2d):
+            if consumed[s] is not None:
+                h2d.wait_event(consumed[s])
+            a = event()
+            a.record(h2d)
+            dev_in[s][:nb].copy_(pin_in[s][:nb], non_blocking=True)
+            uploaded[s] = event()
+            uploaded[s].record(h2d)
+        spans.append(("h2d", a, uploaded[s]))
+        comp.wait_event(uploaded[s])
+        a = event()
+        a.record(comp)
+        r = engine.transform_chunk(dev_in[s][:nb], nf, ml, mr)
+        consumed[s] = event()
+        consumed[s].record(comp)
+        spans.append(("kernels", a, consumed[s]))
+        with torch.cuda.stream(d2h):
+            d2h.wait_event(consumed[s])
+            a = event()
+            a.record(d2h)
+            pin_out[s][:nb].copy_(r, non_blocking=True)
+            r.record_stream(d2h)
+            done = event()
+            done.record(d2h)
+        spans.append(("d2h", a, done))
+        del r
+        if pending:
+            drain(*pending.pop(0))
+        pending.append((s, b, nb, done))
+    for p in pending:
+        drain(*p)
+    torch.cuda.synchronize(dev)
+    secs = {"h2d": 0.0, "kernels": 0.0, "d2h": 0.0}
+    for name, a, e in spans:
+        secs[name] += a.elapsed_time(e) / 1e3
+    secs.update(host_stage=host["stage"], host_drain=host["drain"])
+    return secs
+
+
+def _device_probe(engine, probe_src: np.ndarray, nf: float, ml, mr,
+                  n_chunks: int, iters: int = 4) -> float:
+    """Device seconds of the whole transform: one warm chunk, already on
+    the card, timed with CUDA events over `iters` calls and scaled by the
+    chunk count (the reference's probe, :335-368, without jax)."""
+    x = torch.as_tensor(np.ascontiguousarray(probe_src, np.float32)).to(engine.device)
+    engine.transform_chunk(x, nf, ml, mr)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        engine.transform_chunk(x, nf, ml, mr)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / 1e3 / iters * n_chunks
+
+
+def _run_engine_residual(obj: InferCNV, cfg: RunConfig, timer: StepTimer,
+                         dev: torch.device) -> None:
+    """STEPS 4-14 as the fused CnvEngine transform (log -> bounds subtract
+    -> clamp -> smooth -> median-center -> subtract -> unlog), streamed in
+    cell chunks (reference :215-371).  obj.expr holds the raw counts (the
+    engine's normalisation is idempotent on normalised input)."""
+    from infercnv_tpu_torch.models.hmm import HMMParams
+    from infercnv_tpu_torch.parallel.engine import CnvEngine, EngineConfig
+
+    log_info("STEPS 04-14: fused engine transform (use_engine fast path)")
+    with timer.step("04-14_engine_transform"):
+        tdtype = cfg.engine_transfer_dtype
+        kernel_out = tdtype if tdtype in ("float16", "bfloat16") else "float32"
+        ecfg = EngineConfig(
+            window_length=cfg.window_length,
+            smooth_method=cfg.smooth_method,
+            max_centered_threshold=float(cfg.max_centered_threshold),
+            ref_subtract_use_bounds=cfg.ref_subtract_use_mean_bounds,
+            center_method="median",
+            denoise=False,
+            out_dtype=kernel_out,
+        )
+        # transform-only use: HMM params are placeholders
+        params = HMMParams(means=np.arange(1.0, 7.0), sds=np.ones(6), t=1e-6)
+        engine = CnvEngine(obj.gene_order, params, ecfg, device=dev)
+        if obj.has_reference_cells():
+            groups = [np.asarray(v) for v in obj.ref_groups.values()]
+        else:
+            groups = [obj.all_obs_idx()]
+        ref_idx = np.concatenate(groups)
+        onehot = np.zeros((len(groups), ref_idx.size), np.float32)
+        pos = {int(c): i for i, c in enumerate(ref_idx)}
+        for k, g in enumerate(groups):
+            onehot[k, [pos[int(c)] for c in g]] = 1.0
+        norm_factor = _norm_factor(obj)
+        ml, mr, _ = engine.ref_stats(obj.expr[ref_idx], norm_factor, onehot)
+        C = obj.num_cells
+        chunk = cfg.engine_chunk_cells or 16384
+        probe_src = obj.expr[:chunk]
+        out_bytes = obj.num_cells * obj.num_genes * 4
+        if (cfg.residual_memmap_gb is not None
+                and out_bytes > cfg.residual_memmap_gb * 1e9):
+            mm_path = os.path.join(cfg.out_dir, "_residual.f32.memmap")
+            log_info(f"-residual matrix {out_bytes/1e9:.1f} GB -> disk memmap "
+                     f"{mm_path} (bounded host RSS)")
+            out = np.memmap(mm_path, dtype=np.float32, mode="w+",
+                            shape=(obj.num_cells, obj.num_genes))
+        else:
+            out = np.empty((obj.num_cells, obj.num_genes), np.float32)
+        if kernel_out != "float32":
+            log_info(f"-engine chunk downloads as {tdtype} (kernel-direct)")
+        stream = _stream_cuda if dev.type == "cuda" else _stream_cpu
+        parts = stream(engine, obj.expr, out, chunk, norm_factor, ml, mr)
+        obj.expr = out
+    for name, sec in parts.items():
+        timer.records.append({"step": f"04-14_engine_transform.{name}",
+                              "seconds": round(sec, 4)})
+    if C >= 50_000 and dev.type == "cuda":
+        n_chunks = -(-C // chunk)
+        dev_s = _device_probe(engine, probe_src, norm_factor, ml, mr, n_chunks)
+        timer.records.append({"step": "04-14_engine_transform.device",
+                              "seconds": round(dev_s, 4)})
+        log_info(f"[timing] 04-14_engine_transform.device: {dev_s:.3f}s "
+                 f"({n_chunks} chunks; wall - device = copy/host time)")
+    if obj.hspike is not None:
+        with timer.step("04-14_hspike_mirror"):
+            _hspike_residual_chain(obj.hspike, cfg,
+                                   float(cfg.max_centered_threshold), dev)
+
+
+def _clear_noise(obj: InferCNV, cfg: RunConfig) -> None:
+    """Step 22 (reference :383-407), host numpy.  Not mirrored onto hspike."""
+    if cfg.noise_filter is not None:
+        if cfg.noise_filter > 0:
+            if obj.has_reference_cells():
+                center = float(obj.expr[obj.all_ref_idx()].mean())
+            else:
+                center = float(obj.expr.mean())
+            if cfg.noise_logistic:
+                obj.expr = np.asarray(T.depress_log_signal_midpt_val(obj.expr, center, cfg.noise_filter))
+            else:
+                obj.expr = np.asarray(T.clear_noise(obj.expr, cfg.noise_filter, center))
+    else:
+        ref_idx = obj.all_ref_idx() if obj.has_reference_cells() else obj.all_obs_idx()
+        if cfg.noise_logistic:
+            center, spread = T.ref_mean_sd_bounds(obj.expr, ref_idx, cfg.sd_amplifier)
+            obj.expr = np.asarray(T.depress_log_signal_midpt_val(obj.expr, float(center), float(spread)))
+        else:
+            # >8 GB matrices denoise block-wise in place (the buffer is
+            # run()-owned: the engine allocated it)
+            obj.expr = np.asarray(T.clear_noise_via_ref_mean_sd(
+                obj.expr, ref_idx, cfg.sd_amplifier,
+                inplace=(isinstance(obj.expr, np.ndarray)
+                         and obj.expr.size > 2_000_000_000)))
+
+
+def run(obj: InferCNV, out_dir: Optional[str] = None,
+        device: DeviceLike = None, **kwargs) -> RunResult:
+    """Run the pipeline on the engine path.  kwargs mirror the reference
+    run() arguments (see RunConfig); options not ported yet raise
+    NotImplementedError before any work.  Returns a RunResult."""
+    cfg = RunConfig(out_dir=out_dir, **kwargs)
+    cfg.validate()
+    _refuse_unported(cfg)
+    dev = resolve_device(device)
+    if cfg.debug:
+        set_debug(True)
+    if cfg.out_dir is None:
+        raise ValueError("Error, out_dir is NULL, please provide a path")
+    os.makedirs(cfg.out_dir, exist_ok=True)
+
+    result = RunResult()
+    # shallow: every step rebinds obj.expr (never writes in place)
+    obj = obj.shallow_copy()
+    timer = StepTimer(cfg.out_dir)
+    result.timer = timer
+
+    def done(step: int) -> bool:
+        if cfg.up_to_step == step:
+            result.infercnv_obj = obj
+            return True
+        return False
+
+    # STEP 1: incoming data
+    log_info("STEP 1: incoming data")
+    if done(1):
+        return result
+
+    # STEP 2: gene filters (both per-gene-local: one removal, :568-591)
+    log_info("STEP 02: Removing lowly expressed genes")
+    with timer.step("02_gene_filter"):
+        drop1 = T.below_min_mean_expr_cutoff(obj.expr, cfg.cutoff)
+        if drop1.size:
+            log_info(f"Removing {drop1.size} genes below mean expr threshold {cfg.cutoff}")
+        drop2 = T.genes_below_min_cells_ref(obj.expr, cfg.min_cells_per_gene)
+        drop2 = np.setdiff1d(drop2, drop1)
+        if drop1.size + drop2.size == obj.num_genes:
+            raise RuntimeError("All genes removed! Must revisit your data, cannot continue")
+        if drop2.size:
+            log_info(f"Removed {drop2.size} genes with fewer than {cfg.min_cells_per_gene} cells expressing")
+        drop = np.union1d(drop1, drop2)
+        if drop.size:
+            obj.remove_genes(drop)
+    if done(2):
+        return result
+
+    # STEP 3: depth normalization (+ hspike build).  On the engine path
+    # (no sim_foreground) the counts stay raw on the host, the hspike
+    # statistics normalise on the fly and the engine normalises on the
+    # device (:593-626)
+    raw_engine = _engine_fast_ok(cfg) and not cfg.sim_foreground
+    log_info("STEP 03: normalization by sequencing depth")
+    with timer.step("03_normalize+hspike"):
+        norm_factor = None
+        if raw_engine:
+            norm_factor = float(np.median(
+                np.asarray(obj.expr).sum(axis=1, dtype=np.float64)))
+            log_info("-engine fast path: counts stay raw on host "
+                     f"(device normalization, factor {norm_factor:g})")
+        else:
+            obj.expr = np.asarray(T.normalize_counts_by_seq_depth(obj.expr))
+        if cfg.HMM and cfg.HMM_type == "i6":
+            obj.hspike = build_hspike(obj, sim_method=cfg.sim_method,
+                                      aggregate_normals=cfg.hspike_aggregate_normals,
+                                      seed=cfg.seed,
+                                      common_dispersion=cfg.hspike_common_dispersion,
+                                      normalize_factor=norm_factor)
+        if cfg.sim_foreground:
+            # developer/debug option (reference inferCNV_ops.R:592-593)
+            from infercnv_tpu_torch.models.hspike import sim_foreground
+
+            sim_foreground(obj, sim_method=cfg.sim_method, seed=cfg.seed)
+    if done(3):
+        return result
+
+    # STEPS 4-14: one engine pass per cell chunk (_refuse_unported has
+    # refused every configuration that would leave this path)
+    _run_engine_residual(obj, cfg, timer, dev)
+    if (not cfg.save_final_rds and obj.counts is not None
+            and getattr(obj.counts, "nbytes", 0) > 4_000_000_000):
+        # no RDS outputs will ever read the raw counts again
+        log_info("-releasing raw counts matrix "
+                 f"({obj.counts.nbytes/1e9:.1f} GB; no RDS outputs requested)")
+        obj.counts = None
+
+    # STEP 15: subclustering (hclust partitions) / plain clustering
+    if cfg.analysis_mode == "subclusters":
+        log_info(f"STEP 15: computing tumor subclusters via {cfg.tumor_subcluster_partition_method}")
+        with timer.step("15_subclusters"):
+            define_tumor_subclusters(
+                obj, p_val=cfg.tumor_subcluster_pval,
+                cluster_by_groups=cfg.cluster_by_groups,
+                partition_method=cfg.tumor_subcluster_partition_method,
+                z_score_filter=cfg.z_score_filter, device=dev)
+        for ph, sec in sorted(PHASE_TIMES.items(), key=lambda kv: -kv[1]):
+            timer.records.append({"step": f"15_subclusters.{ph}",
+                                  "seconds": round(sec, 4)})
+    else:
+        log_info("STEP 15: Clustering samples (not defining tumor subclusters)")
+        with timer.step("15_clustering"):
+            define_tumor_subclusters(
+                obj, p_val=cfg.tumor_subcluster_pval,
+                cluster_by_groups=cfg.cluster_by_groups, partition_method="none",
+                z_score_filter=cfg.z_score_filter, device=dev)
+    if done(15) or done(16):
+        return result
+
+    # STEP 17: HMM CNV prediction
+    hmm_states = None
+    resume_token = f".HMM{cfg.HMM_type}" if cfg.HMM else ""
+    hmm_resume_token = f"{resume_token}.hmm_mode-{cfg.analysis_mode}"
+    if cfg.HMM:
+        log_info("STEP 17: HMM-based CNV prediction")
+        with timer.step("17_hmm"):
+            if cfg.HMM_type == "i6":
+                cnv_mean_sd = hmm_mod.get_spike_dists(obj.hspike)
+                trend_fits = hmm_mod.cnv_mean_sd_trend_fit(obj.hspike, seed=cfg.seed)
+                params = hmm_mod.i6_hmm_params(cnv_mean_sd, t=cfg.HMM_transition_prob)
+                neutral = hmm_mod.NEUTRAL_STATE_I6
+            else:
+                params = hmm_mod.i3_hmm_params(
+                    obj.expr, list(obj.ref_groups.values()),
+                    list(obj.obs_groups.values()),
+                    t=cfg.HMM_transition_prob, i3_p_val=cfg.HMM_i3_pval,
+                    use_KS=cfg.HMM_i3_use_KS)
+                trend_fits = None
+                neutral = hmm_mod.NEUTRAL_STATE_I3
+
+            if cfg.analysis_mode == "subclusters":
+                groups: Dict[str, np.ndarray] = {}
+                if obj.tumor_subclusters is not None:
+                    for _g, subs in obj.tumor_subclusters["subclusters"].items():
+                        groups.update(subs)
+                hmm_states = hmm_mod.predict_hmm_on_groups(
+                    obj, params, groups, trend_fits, factorized=True, device=dev)
+            elif cfg.analysis_mode == "cells":
+                hmm_states = hmm_mod.predict_hmm_on_cells(obj, params, device=dev)
+            else:  # samples
+                if cfg.cluster_by_groups:
+                    groups = {**obj.obs_groups, **obj.ref_groups}
+                else:
+                    groups = {"all_observations": obj.all_obs_idx(), **obj.ref_groups}
+                hmm_states = hmm_mod.predict_hmm_on_groups(
+                    obj, params, groups, trend_fits, factorized=True, device=dev)
+
+            result.region_reports = generate_cnv_region_reports(
+                obj, hmm_states,
+                output_filename_prefix=f"17_HMM_pred{hmm_resume_token}",
+                out_dir=cfg.out_dir,
+                ignore_neutral_state=neutral,
+                by=cfg.HMM_report_by,
+            )
+        result.hmm_states = hmm_states
+        result.hmm_gene_order = obj.gene_order
+    if done(17) or done(18) or done(19):
+        return result
+
+    # STEP 20: states -> proxy expression values (lazy: RunResult expands
+    # the [C, G] float matrix only if the caller reads hmm_proxy_values)
+    if cfg.HMM and hmm_states is not None:
+        log_info("STEP 20: Converting HMM-based CNV states to repr expr vals")
+        result._proxy_num_states = 6 if cfg.HMM_type == "i6" else 3
+    if done(20) or done(21):
+        return result
+
+    # STEP 22: denoising
+    if cfg.denoise:
+        log_info("STEP 22: Denoising")
+        with timer.step("22_denoise"):
+            _clear_noise(obj, cfg)
+    if done(22):
+        return result
+
+    timer.finish()
+    result.infercnv_obj = obj
+    return result

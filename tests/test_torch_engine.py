@@ -249,3 +249,24 @@ def test_interop_engine_from_numpy(small):
     stats = ref_stats_from_numpy(np.zeros((2, 3)), np.zeros((2, 3)), np.zeros(2),
                                  device="cpu")
     assert all(s.dtype == torch.float32 and s.device.type == "cpu" for s in stats)
+
+
+def test_median_radix_bits_not_dividing_32():
+    """A digit width that does not divide 32 (ROADMAP C1): the reference
+    accepts it and its median is exact for any width, so the port runs it
+    too and matches, 300 genes, within rtol = atol = 2e-5."""
+    rng = np.random.default_rng(11)
+    lens = [100, 100, 100]
+    counts = rng.poisson(rng.gamma(2.0, 30.0, 300)[None, :]
+                         * np.ones((40, 1))).astype(np.float32)
+    counts[20:, 100:200] = np.round(counts[20:, 100:200] * 0.5)
+    nf = float(np.median(counts.sum(axis=1)))
+    je, te = _engines(lens, window_length=21, median_radix_bits=3)
+    ml, mr, nb = je.ref_stats(counts[:12], nf)
+    got = te.ref_stats(counts[:12], nf)
+    for g, w in zip(got, (ml, mr, nb)):
+        np.testing.assert_allclose(np_(g), np_(w), rtol=2e-5, atol=2e-5)
+    tml, tmr, _ = ref_stats_from_numpy(np_(ml), np_(mr), np_(nb), device="cpu")
+    np.testing.assert_allclose(np_(te.transform_chunk(counts, nf, tml, tmr)),
+                               np_(je.transform_chunk(counts, nf, ml, mr)),
+                               rtol=2e-5, atol=2e-5)

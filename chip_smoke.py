@@ -37,6 +37,20 @@ Phases, each printing one JSON line:
   reference   the default engine on 512 cells, the card against the CPU
   coords_reference  the coordinates + i3 engine on 512 cells, the card
               against the CPU, full_chunk included
+  run_i6_subclusters, run_i3_coords_cells  run() on 34,816 cells x 8448
+              genes (make_run_object): i6 with qnorm subclusters; i3 with
+              the coordinates smooth in cells mode
+  run_i6_leiden  the same object, run()'s default Leiden partition with
+              cluster_by_groups=False: one 32,768-cell group (tiled kNN,
+              the dendrogram on device-computed subcluster profiles),
+              step 15 from the residual kept on the card
+  run_op_by_op  the same object, use_engine=False up to step 14 (kernels
+              3 and 7 through the chromosome smooth and the centring),
+              against the engine's residual within 2e-4
+  run_reference, run_subcluster_reference  run() on 1,024 cells, the card
+              against the CPU: i6 with qnorm; the Leiden with
+              per-chromosome subclusters and HMM; the op-by-op options
+              with random_trees, split references and the DE mask
 Each path phase runs two warm-up chunks, then sets every launch count to 0
 just before it and reads them just after; besides its wall-clock rate it
 reports the chunks' mean device span (CUDA events).  Then the kernel table as one JSON line, the nvidia-smi line, and
@@ -457,8 +471,282 @@ def drive_run(obj, out_dir: Path, dev, **kw):
     return res, wall, read_launches()
 
 
+def leiden_calls(res, neutral: int = 3) -> dict:
+    """The Leiden run's gates, read from its result: the share of the
+    planted loss (chr2) and gain (chr5) called over the cells of obs4-obs7,
+    the neutral share over obs0-obs3 and the references, and for each
+    subcluster of at least 20 cells its share of cells from one side
+    (obs4-obs7 against obs0-obs3; the references form groups of their
+    own), with the lowest such share."""
+    import numpy as np
+
+    obj = res.infercnv_obj
+    st = res.hmm_states
+    go = obj.gene_order
+    c2, c5 = go.chr_gene_indices("chr2"), go.chr_gene_indices("chr5")
+    tumour = np.concatenate([obj.obs_groups[f"obs{k}"] for k in range(4, 8)])
+    normal = np.concatenate([obj.obs_groups[f"obs{k}"] for k in range(4)]
+                            + list(obj.ref_groups.values()))
+    is_tumour = np.zeros(obj.num_cells, bool)
+    is_tumour[tumour] = True
+    purity = {}
+    for subs in obj.tumor_subclusters["subclusters"].values():
+        for name, idx in subs.items():
+            if len(idx) >= 20:
+                f = float(is_tumour[idx].mean())
+                purity[name] = max(f, 1.0 - f)
+    sizes = sorted((len(i) for subs in obj.tumor_subclusters["subclusters"].values()
+                    for i in subs.values()), reverse=True)
+    return {"del_chr2": float((st[tumour][:, c2] < neutral).mean()),
+            "amp_chr5": float((st[tumour][:, c5] > neutral).mean()),
+            "neutral_obs0_3_refs": float((st[normal] == neutral).mean()),
+            "subclusters": len(sizes), "largest": sizes[:8],
+            "subclusters_of_20_or_more": len(purity),
+            "min_one_side_share": min(purity.values()) if purity else None}
+
+
+class Step15Log:
+    """Records, in order, each VST feature selection (its rows and the
+    chosen columns) and each kNN (its rows and the neighbours) that step 15
+    makes (pca.variable_features_vst and partition.knn_indices wrapped), so
+    that two runs whose partitions differ can be checked for near-ties
+    (without `record`, the rows are not kept); also the genes the first
+    z-score filter kept; with `capture`, a copy of the object and the
+    arguments that run() hands to step 15 (its input: the step-14
+    residual)."""
+
+    def __init__(self, capture: bool = False, record: bool = True):
+        from infercnv_tpu_torch.runner import pipeline
+        from infercnv_tpu_torch.subcluster import partition, pca
+
+        self.partition, self.pca, self.pipeline = partition, pca, pipeline
+        self.orig = (pca.variable_features_vst, partition.knn_indices,
+                     pipeline.define_tumor_subclusters, partition.zscore_gene_filter)
+        self.events = []
+        self.capture, self.record = capture, record
+        self.inputs = None     # (object with its expr copied, kwargs) of run()'s first call
+        self.keep = None       # genes kept by the first z-score filter
+
+    @staticmethod
+    def _host(x):
+        import numpy as np
+
+        return (x.detach().cpu().double().numpy() if hasattr(x, "detach")
+                else np.asarray(x, np.float64))
+
+    def __enter__(self):
+        vst, knn, define, zfilter = self.orig
+
+        def define_wrapped(obj, **k):
+            if self.capture and self.inputs is None:
+                o = obj.shallow_copy()
+                o.expr = obj.expr.copy()
+                self.inputs = (o, {n: v for n, v in k.items()
+                                   if n not in ("device", "device_chunks")})
+            return define(obj, **k)
+
+        def z_wrapped(*a, **k):
+            keep = zfilter(*a, **k)
+            if self.keep is None:
+                self.keep = keep
+            return keep
+
+        def vst_wrapped(x, *a, **k):
+            idx = vst(x, *a, **k)
+            self.events.append(("vst", self._host(x) if self.record else None, idx))
+            return idx
+
+        def knn_wrapped(x, k, device=None):
+            nn = knn(x, k, device)
+            self.events.append(("knn", self._host(x) if self.record else None,
+                                nn.cpu().numpy()))
+            return nn
+
+        self.pca.variable_features_vst = vst_wrapped
+        self.partition.knn_indices = knn_wrapped
+        self.pipeline.define_tumor_subclusters = define_wrapped
+        self.partition.zscore_gene_filter = z_wrapped
+        return self
+
+    def __exit__(self, *exc):
+        (self.pca.variable_features_vst, self.partition.knn_indices,
+         self.pipeline.define_tumor_subclusters,
+         self.partition.zscore_gene_filter) = self.orig
+
+    def vst_counts(self, go) -> dict:
+        """The first VST selection's features in all, and on chr2 and chr5
+        of gene order `go`."""
+        import numpy as np
+
+        idx = next((e[2] for e in self.events if e[0] == "vst"), None)
+        if self.keep is None or idx is None:
+            return {}
+        genes = self.keep[idx]
+        return {"features": int(genes.size), "genes_kept": int(self.keep.size),
+                "chr2": int(np.isin(genes, go.chr_gene_indices("chr2")).sum()),
+                "chr5": int(np.isin(genes, go.chr_gene_indices("chr5")).sum())}
+
+
+#: a near-tie: a VST feature whose standardised variance is within
+#: VST_TIE_REL of the cutoff's; a kNN entry of an embedding whose distance is
+#: within KNN_TIE_REL of the k-th neighbour's; a kNN entry of raw rows
+#: within the f32 Gram form's rounding bound, 2 G 2^-24 (|q|^2 + |j|^2)
+#: doubled (|a|^2 + |b|^2 - 2 a.b cancels where rows sit near 1)
+VST_TIE_REL = 1e-5
+KNN_TIE_REL = 1e-5
+
+
+def near_ties(log_a: "Step15Log", log_b: "Step15Log") -> dict:
+    """Where two runs of step 15 on the same input differ, and whether each
+    difference is a near-tie (distances and variances from run a's values,
+    float64).  After a VST feature set that differs the two embeddings
+    differ, so the kNN that follows is not compared entry by entry."""
+    import numpy as np
+
+    from infercnv_tpu_torch.subcluster.pca import vst_standardized_variance
+
+    ea, eb = log_a.events, log_b.events
+    if [e[0] for e in ea] != [e[0] for e in eb]:
+        return {"same_calls": False, "all_near_ties": False}
+    vst_diffs, knn_diffs, all_ties, features_differ = [], [], True, False
+    for ci, ((kind, xa, ra), (_k, _xb, rb)) in enumerate(zip(ea, eb)):
+        if kind == "vst":
+            extra = np.setxor1d(ra, rb)
+            features_differ = extra.size > 0
+            if features_differ:
+                sv = vst_standardized_variance(xa)
+                cut = np.sort(sv)[::-1][ra.size - 1]
+                for g in extra:
+                    tie = abs(sv[g] - cut) <= VST_TIE_REL * abs(cut)
+                    all_ties &= bool(tie)
+                    vst_diffs.append({"call": ci, "gene": int(g), "std_var": float(sv[g]),
+                                      "cutoff": float(cut), "near_tie": bool(tie)})
+            continue
+        embedding = xa.shape[1] <= 10
+        if features_differ:
+            features_differ = False
+            continue
+        sq = (xa * xa).sum(axis=1)
+        for q in np.nonzero((np.sort(ra, 1) != np.sort(rb, 1)).any(axis=1))[0]:
+            d = ((xa - xa[q]) ** 2).sum(axis=1)
+            kth = ra[q][np.argmax(d[ra[q]])]
+            for j in set(ra[q].tolist()) ^ set(rb[q].tolist()):
+                bound = (KNN_TIE_REL * d[kth] if embedding else
+                         2 * (2 * xa.shape[1] * 2.0 ** -24 * (sq[q] + max(sq[j], sq[kth]))))
+                tie = abs(d[j] - d[kth]) <= bound
+                all_ties &= bool(tie)
+                knn_diffs.append({"call": ci, "row": int(q), "col": int(j),
+                                  "d2": float(d[j]), "kth_d2": float(d[kth]),
+                                  "embedding": embedding, "near_tie": bool(tie)})
+    return {"same_calls": True, "all_near_ties": bool(all_ties),
+            "vst_entries": vst_diffs[:12], "n_vst_entries": len(vst_diffs),
+            "knn_entries": knn_diffs[:12], "n_knn_entries": len(knn_diffs)}
+
+
+def nested_equal(a, b) -> bool:
+    """Two {group: {name: cell indices}} maps (or None) are equal, names and
+    order included."""
+    import numpy as np
+
+    if a is None or b is None:
+        return a is b
+    return list(a) == list(b) and all(
+        list(a[g]) == list(b[g]) and all(np.array_equal(a[g][n], b[g][n]) for n in a[g])
+        for g in a)
+
+
+def replay_step15(inputs, dev) -> dict:
+    """Step 15 of one run replayed from that run's own input on the card and
+    on the CPU: partitions equal, or every difference a near-tie."""
+    from infercnv_tpu_torch.subcluster.partition import define_tumor_subclusters
+
+    obj, kw = inputs
+    out = []
+    for d in (dev, "cpu"):
+        o = obj.shallow_copy()
+        with Step15Log() as log:
+            per_chr = define_tumor_subclusters(o, device=d, **kw)
+        out.append((log, o.tumor_subclusters["subclusters"], per_chr))
+    (lg, sg, pg), (lc, sc, pc) = out
+    same = nested_equal(sg, sc) and nested_equal(pg, pc)
+    ties = None if same else near_ties(lg, lc)
+    return {"partitions_equal": same, "near_ties": ties,
+            "ok": same or bool(ties["all_near_ties"])}
+
+
+def logged_run(obj, out_dir: str, device, kw: dict) -> dict:
+    """run() under a capturing Step15Log; returns what card_against_cpu
+    compares, as numpy and plain containers, so that a worker process can
+    send it back."""
+    sys.path.insert(0, str(ROOT))
+    from infercnv_tpu_torch.runner.pipeline import run as run_pipeline
+
+    with Step15Log(capture=True) as log:
+        r = run_pipeline(obj, out_dir=out_dir, device=device, **RUN_KW, **kw)
+    return {"expr": r.infercnv_obj.expr, "states": r.hmm_states,
+            "subclusters": r.infercnv_obj.tumor_subclusters["subclusters"],
+            "per_chr": r.subclusters_per_chr, "events": log.events,
+            "inputs": log.inputs}
+
+
+def card_against_cpu(obj, out_root: Path, name: str, dev, **kw) -> dict:
+    """run() of one configuration on the card and on the CPU (the CPU run in
+    a worker process beside the card run): subclusters, states and report
+    bytes equal, final expr under denoised_agree.
+
+    Step 15's input differs between the two runs by the engine's rounding
+    (kernels against plain versions, within 2e-5), and on groups with no
+    structure of their own the VST feature ranking and the kNN have
+    near-ties that such differences flip.  So where the two runs' partitions
+    differ, step 15 is replayed from the card run's own input on the card
+    and on the CPU (replay_step15): that must give equal partitions, or
+    differences that are all near-ties (printed); the full runs' states and
+    reports are then reported, not required equal."""
+    import filecmp
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+
+    dirs = {d: out_root / f"{name}_{d}" for d in ("card", "cpu")}
+    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu = pool.submit(logged_run, obj, str(dirs["cpu"]), "cpu", kw)
+        rg = logged_run(obj, str(dirs["card"]), dev, kw)
+        rc = cpu.result()
+    same_parts = (nested_equal(rg["subclusters"], rc["subclusters"])
+                  and nested_equal(rg["per_chr"], rc["per_chr"]))
+    replay = None
+    xg, xc = rg["inputs"][0].expr, rc["inputs"][0].expr
+    input_err = float(np.abs(xg - xc).max()) if xg.shape == xc.shape else None
+    if not same_parts:
+        replay = replay_step15(rg["inputs"], dev)
+        print(f"chip_smoke: {name}: card and CPU partitions differ (step-15 inputs "
+              f"differ by up to {input_err}); step 15 replayed from the card run's "
+              f"input: {json.dumps(replay)}", file=sys.stderr, flush=True)
+        require(replay["ok"], f"{name}: step 15 on one input differs between the "
+                f"card and the CPU beyond near-ties: {replay}")
+    same_states = bool(np.array_equal(rg["states"], rc["states"]))
+    reports = sorted(p.name for p in dirs["cpu"].glob("17_HMM_pred*"))
+    equal = [f for f in reports if filecmp.cmp(dirs["card"] / f, dirs["cpu"] / f,
+                                                shallow=False)]
+    eg, ec = rg["expr"], rc["expr"]
+    shape_ok = eg.shape == ec.shape
+    ok, err, flips = denoised_agree(eg, ec) if shape_ok else (False, None, 0)
+    if same_parts:
+        require(same_states, f"{name}: card and CPU HMM states differ")
+        require(len(reports) == 4 and equal == reports,
+                f"{name}: region reports differ: {sorted(set(reports) - set(equal))}")
+        require(shape_ok and ok, f"{name}: card and CPU final expr differ "
+                f"(max {err} away from the denoise band's edge)")
+    return dict(cells=int(ec.shape[0]), genes=int(ec.shape[1]),
+                step15_input_max_abs_err=input_err, subclusters_equal=same_parts,
+                replay=replay, subclusters=sum(len(v) for v in rc["subclusters"].values()),
+                states_equal=same_states, reports_byte_equal=equal,
+                expr_max_abs_err=err, denoise_edge_flips=flips)
+
+
 def run_phases(dev, smi, out_root: Path) -> dict:
-    """The three run() phases; returns each full-width phase's launches."""
+    """The run() phases; returns each full-width phase's launches."""
     import filecmp
 
     import numpy as np
@@ -493,7 +781,83 @@ def run_phases(dev, smi, out_root: Path) -> dict:
     emit(phase="run_i6_subclusters", card=smi, cells=C, genes=G, launches=n,
          make_object_s=make_s, wall_s=wall, step_seconds=res.timer.records,
          called=calls)
-    del obj, res
+    del res
+
+    # ---- run_i6_leiden: the default Leiden partition, one 32,768-cell ----
+    # group (cluster_by_groups=False), the residual kept on the card
+    from infercnv_tpu_torch.subcluster import partition
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    partition.ROWS_FROM = None
+    with Step15Log(capture=True, record=False) as step15:
+        res, wall, n = drive_run(obj, out_root / "run_i6_leiden", dev, HMM=True,
+                                 HMM_type="i6", analysis_mode="subclusters",
+                                 cluster_by_groups=False)
+    engine_residual = step15.inputs[0].expr   # the engine's step-14 residual
+    launches["run_i6_leiden"] = n
+    for k in ("residual_fused", "viterbi", "smooth_banded", "row_median"):
+        require(n[k] > 0, f"{k} was not launched by run_i6_leiden")
+    require(partition.ROWS_FROM == "device_chunks",
+            f"run_i6_leiden: step 15 took its rows from {partition.ROWS_FROM!r}, "
+            "not from the residual kept on the card")
+    phases15 = {r["step"]: r["seconds"] for r in res.timer.records
+                if r["step"].startswith("15_subclusters")}
+    require({f"15_subclusters.{p}" for p in ("gene_filter", "slice", "pca", "knn",
+                                             "snn", "leiden", "linkage")} <= set(phases15),
+            f"run_i6_leiden: step 15's phases are {sorted(phases15)}")
+    require(bool(np.isfinite(res.infercnv_obj.expr).all()),
+            "run_i6_leiden: the final expr is not finite")
+    calls = leiden_calls(res)
+    vst_counts = step15.vst_counts(res.infercnv_obj.gene_order)
+    del step15
+    subs_obs = res.infercnv_obj.tumor_subclusters["subclusters"]["all_observations"]
+    require(len(subs_obs) >= 2, "run_i6_leiden: the 32,768 observation cells "
+            f"form {len(subs_obs)} subcluster(s)")
+    # The planted CNVs span whole chromosomes, so their genes' residual
+    # means sit at 0.75 (chr2) and 1.5 (chr5) beside ~1 elsewhere, and the
+    # VST trend (log variance on log mean) fits their variance away: the
+    # 2,000 features hold almost none of them, the embedding does not
+    # separate the sides, and neither does the JAX package's on this
+    # object (tests/test_torch_pipeline_ops.py holds the two packages'
+    # Leiden runs equal on subclones with CNV segments).  The side purity
+    # and the planted calls are reported, not enforced; `vst_features`
+    # counts the chosen genes on chr2 and chr5.
+    sides_met = (calls["min_one_side_share"] is not None
+                 and calls["min_one_side_share"] >= 0.95)
+    calls_met = (calls["del_chr2"] > 0.7 and calls["amp_chr5"] > 0.7
+                 and calls["neutral_obs0_3_refs"] > 0.9)
+    if not (sides_met and calls_met):
+        print(f"chip_smoke: run_i6_leiden: side purity >= 0.95 {sides_met}, planted "
+              f"calls {calls_met} (reported, not enforced): {json.dumps(calls)}; "
+              f"VST features {json.dumps(vst_counts)}", file=sys.stderr, flush=True)
+    C, G = res.infercnv_obj.expr.shape
+    emit(phase="run_i6_leiden", card=smi, cells=C, genes=G, launches=n,
+         wall_s=wall, step_seconds=res.timer.records,
+         rows_from=partition.ROWS_FROM,
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+         called=calls, side_purity_met=sides_met, planted_calls_met=calls_met,
+         vst_features=vst_counts)
+    del res
+
+    # ---- run_op_by_op: steps 4-14 op by op against the engine's -------
+    # residual, as run_i6_leiden handed it to step 15
+    torch.cuda.empty_cache()
+    res, wall, n = drive_run(obj, out_root / "run_op_by_op", dev,
+                             use_engine=False, up_to_step=14)
+    launches["run_op_by_op"] = n
+    for k in ("smooth_banded", "row_median"):
+        require(n[k] > 0, f"{k} was not launched by run_op_by_op")
+    ops, eng = res.infercnv_obj.expr, engine_residual
+    require(ops.shape == eng.shape, f"run_op_by_op: shapes {ops.shape} and {eng.shape}")
+    err = float(np.abs(ops - eng).max())
+    close = bool(np.allclose(ops, eng, rtol=2e-4, atol=2e-4))
+    require(close, f"run_op_by_op: the op-by-op residual is not within 2e-4 of "
+            f"the engine's (max abs {err})")
+    emit(phase="run_op_by_op", card=smi, cells=int(ops.shape[0]),
+         genes=int(ops.shape[1]), launches=n, wall_s=wall,
+         step_seconds=res.timer.records, max_abs_err_vs_engine=err)
+    del obj, res, ops, eng, engine_residual
 
     # ---- run_i3_coords_cells: i3, coordinates smoothing, cells mode -----
     hgo = human_like_genome(8448)
@@ -545,6 +909,25 @@ def run_phases(dev, smi, out_root: Path) -> dict:
             f"run_reference: region reports differ: {sorted(set(reports) - set(equal))}")
     emit(phase="run_reference", cells=int(eg.shape[0]), expr_max_abs_err=err,
          denoise_edge_flips=flips, states_equal=same, reports_byte_equal=equal)
+
+    # ---- run_subcluster_reference: Leiden per chromosome, and the -------
+    # op-by-op options with random_trees, the card against the CPU
+    t0 = time.perf_counter()
+    a = card_against_cpu(obj, out_root, "run_subcluster_reference_a", dev,
+                         HMM=True, HMM_type="i6", analysis_mode="subclusters",
+                         cluster_by_groups=True, per_chr_hmm_subclusters=True)
+    a_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b = card_against_cpu(obj, out_root, "run_subcluster_reference_b", dev,
+                         HMM=True, HMM_type="i6", analysis_mode="subclusters",
+                         use_engine=False, num_ref_groups=2,
+                         tumor_subcluster_partition_method="random_trees",
+                         max_centered_threshold="auto",
+                         remove_genes_at_chr_ends=True, prune_outliers=True,
+                         mask_nonDE_genes=True)
+    b_s = time.perf_counter() - t0
+    emit(phase="run_subcluster_reference", leiden_per_chr=dict(a, seconds=a_s),
+         op_by_op_random_trees=dict(b, seconds=b_s))
     torch.cuda.empty_cache()
     return launches
 

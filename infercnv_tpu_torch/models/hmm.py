@@ -6,14 +6,17 @@ levels and proxy values (lines 35-39), the hspike statistics
 ``gene_expr_by_cnv`` and ``get_spike_dists`` (:46-69), ``HMMParams`` and
 ``state_emission_sds`` (:102-138), the i6 and i3 parameterisations
 (:141-191), ``viterbi_per_group`` with its packed implementation (:331-386,
-here over ops/viterbi_pack.py and the CUDA Viterbi), ``GroupedStates`` and
-the drivers ``predict_hmm_on_cells`` and ``predict_hmm_on_groups``
-(:414-491), and the proxy-value maps (:545-561).  ``cnv_mean_sd_trend_fit``
-(:72-99) bootstraps with a ``torch.Generator`` on the CPU where the
-reference draws with ``jax.random``, so its fits agree with the reference's
-to the bootstrap's spread.  Not ported yet: ``impl="perchr"`` and
-``predict_hmm_on_subclusters_per_chr``, which needs the per-chromosome
-Leiden partitions (ROADMAP A6).
+here over ops/viterbi_pack.py and the CUDA Viterbi), ``GroupedStates``,
+the prediction entry points ``predict_hmm_on_cells``,
+``predict_hmm_on_groups`` and ``predict_hmm_on_subclusters_per_chr``
+(:414-543), and the proxy-value maps
+(:545-561).  ``viterbi_per_group(impl="perchr")`` is the reference's
+per-chromosome padding (``pack_by_chromosome``, :253-278, copied) run
+through the same Viterbi kernel with each chromosome a sequence of its own
+length.  ``cnv_mean_sd_trend_fit`` (:72-99) bootstraps with a
+``torch.Generator`` on the CPU where the reference draws with
+``jax.random``, so its fits agree with the reference's to the bootstrap's
+spread.  Not ported yet: the ``mesh`` argument (ROADMAP A8).
 
 reference: R/inferCNV_HMM.R — i6 states <-> CNV levels {0, 0.5, 1, 1.5, 2, 3};
 R/inferCNV_i3HMM.R — i3 states {del, neutral, amp}; Viterbi.dthmm.adj
@@ -28,6 +31,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from infercnv_tpu_torch.core.genome import GeneOrder
 from infercnv_tpu_torch.device import DeviceLike, resolve_device
 from infercnv_tpu_torch.utils.logging import log_info
 
@@ -178,22 +182,73 @@ def i3_hmm_params(expr_cg, ref_groups: Sequence[np.ndarray],
     return HMMParams(means=means, sds=sds, t=t)
 
 
+def pack_by_chromosome(x_bg: np.ndarray, gene_order: GeneOrder):
+    """Pack [B, G] data into per-chromosome padded sequences.
+
+    Returns (x_packed [B*n_chr, Lmax], mask [B*n_chr, Lmax], chr_ranges)."""
+    ranges = [r for r in gene_order.chr_ranges() if r[1] > r[0]]
+    Lmax = max(e - b for (b, e) in ranges)
+    B = x_bg.shape[0]
+    n_chr = len(ranges)
+    xp = np.zeros((B, n_chr, Lmax), np.float32)
+    mask = np.zeros((n_chr, Lmax), bool)
+    for ci, (b, e) in enumerate(ranges):
+        xp[:, ci, : e - b] = x_bg[:, b:e]
+        mask[ci, : e - b] = True
+    return (
+        xp.reshape(B * n_chr, Lmax),
+        np.broadcast_to(mask[None], (B, n_chr, Lmax)).reshape(B * n_chr, Lmax).copy(),
+        ranges,
+    )
+
+
+def _viterbi_perchr(x_bg: np.ndarray, gene_order: GeneOrder, params: HMMParams,
+                    sigma_rows: np.ndarray, dev: torch.device) -> np.ndarray:
+    """impl='perchr': one padded sequence a (row, chromosome), each of its
+    chromosome's length, through the Viterbi kernel with no restarts."""
+    from infercnv_tpu_torch.ops.viterbi_kernel import transition_logs, viterbi
+
+    B, G = x_bg.shape
+    S = params.num_states
+    xp, mask, ranges = pack_by_chromosome(x_bg, gene_order)
+    n_chr = len(ranges)
+    log_diag, log_off, log_delta = transition_logs(S, params.t)
+    states = viterbi(
+        torch.as_tensor(xp).to(dev),
+        torch.as_tensor(mask.sum(axis=1).astype(np.int32)).to(dev),
+        torch.as_tensor(np.repeat(sigma_rows, n_chr).astype(np.float32)).to(dev),
+        torch.zeros(xp.shape, dtype=torch.int8, device=dev),
+        np.asarray(params.means, np.float32), log_delta, log_diag, log_off)
+    states = states.cpu().numpy().reshape(B, n_chr, -1)
+    out = np.full((B, G), (S - 1) // 2 + 1, np.int32)  # neutral default
+    for ci, (b, e) in enumerate(ranges):
+        if e - b < 2:
+            continue  # stays neutral
+        out[:, b:e] = states[:, ci, :e - b]
+    return out
+
+
 def viterbi_per_group(x_bg, gene_order, params: HMMParams,
                       group_sds: Optional[np.ndarray] = None,
+                      impl: str = "packed",
                       device: DeviceLike = None) -> np.ndarray:
     """Viterbi for each row of x_bg ([B, G] per-cell or per-group mean
-    expression), per chromosome, over the bin-packed layout the streaming
-    engine also runs (ops/viterbi_pack.py: chromosomes first-fit packed into
-    bins with chain restarts).  group_sds: optional [B, S] per-row state sds,
-    collapsed to their median (:1122); defaults to params.sds for every row.
-    Runs on ``device`` (CUDA unless the caller passes "cpu").  The
-    reference's impl="perchr" cross-check and its mesh argument are not
-    ported.
+    expression), per chromosome.  group_sds: optional [B, S] per-row state
+    sds, collapsed to their median (:1122); defaults to params.sds for every
+    row.  Runs on ``device`` (CUDA unless the caller passes "cpu").
+
+    impl='packed' (default): the bin-packed layout the streaming engine also
+    runs (ops/viterbi_pack.py: chromosomes first-fit packed into bins with
+    chain restarts).  impl='perchr': each chromosome its own padded
+    sequence, the reference's cross-check; both give the same states.  The
+    reference's mesh argument is not ported (ROADMAP A8).
 
     Returns the 1-based state matrix [B, G] (int32).  Chromosomes with < 2
     genes get the neutral state (reference Viterbi.dthmm.adj :1104-1107)."""
     from infercnv_tpu_torch.ops.viterbi_pack import get_layout, viterbi_packed
 
+    if impl not in ("packed", "perchr"):
+        raise ValueError(f"unknown Viterbi impl {impl!r} (use 'packed' or 'perchr')")
     dev = resolve_device(device)
     if torch.is_tensor(x_bg):
         x_bg = x_bg.detach().cpu().numpy()
@@ -202,6 +257,9 @@ def viterbi_per_group(x_bg, gene_order, params: HMMParams,
     if group_sds is None:
         group_sds = np.broadcast_to(params.sds[None, :], (B, S))
     sigma_rows = np.median(group_sds, axis=1)  # median collapse (:1122)
+    if impl == "perchr":
+        return _viterbi_perchr(np.asarray(x_bg, np.float32), gene_order,
+                               params, sigma_rows, dev)
     states = viterbi_packed(
         torch.as_tensor(np.asarray(x_bg, np.float32)).to(dev),
         get_layout(gene_order), np.asarray(params.means, np.float32),
@@ -288,6 +346,59 @@ def predict_hmm_on_groups(
             [states_rows, np.full((1, states_rows.shape[1]), neutral, np.int8)])
     gs = GroupedStates(rows=states_rows, cell_to_row=cell_to_row, names=names)
     return gs if factorized else gs.materialize()
+
+
+def predict_hmm_on_subclusters_per_chr(
+    obj,
+    params: HMMParams,
+    subclusters_per_chr: Dict[str, Dict[str, np.ndarray]],
+    trend_fits: Optional[Dict[str, Tuple[float, float]]] = None,
+    levels: Sequence[str] = I6_LEVELS,
+    device: DeviceLike = None,
+) -> np.ndarray:
+    """Per-chromosome subcluster HMM (reference
+    predict_CNV_via_HMM_on_tumor_subclusters_per_chr :412-487): each
+    chromosome is predicted with its own cell partition, then the top-level
+    subclusters force a per-region consensus.  Returns int8 [C, G]."""
+    from infercnv_tpu_torch.report.regions import get_predicted_cnv_regions
+
+    log_info("predict_hmm_on_subclusters_per_chr()")
+    S = params.num_states
+    out = np.full(obj.expr.shape, (S - 1) // 2 + 1, np.int8)
+    for cname in obj.gene_order.chr_names:
+        if cname not in subclusters_per_chr:
+            continue
+        gsel = obj.gene_order.chr_gene_indices(cname)
+        if gsel.size < 2:
+            continue
+        sub_go = GeneOrder(
+            names=tuple(obj.gene_order.names[i] for i in gsel),
+            chr_names=(cname,),
+            chr_ids=np.zeros(gsel.size, np.int32),
+            start=obj.gene_order.start[gsel],
+            stop=obj.gene_order.stop[gsel],
+        )
+        groups = subclusters_per_chr[cname]
+        idxs = [np.asarray(v) for v in groups.values()]
+        rows = np.stack([obj.expr[np.ix_(ix, gsel)].mean(axis=0) for ix in idxs])
+        if trend_fits is not None:
+            group_sds = np.stack([
+                state_emission_sds(len(ix), trend_fits, levels) for ix in idxs])
+        else:
+            group_sds = None
+        st = viterbi_per_group(rows, sub_go, params, group_sds, device=device)
+        for r, ix in enumerate(idxs):
+            out[np.ix_(ix, gsel)] = st[r]
+    # force consensus per top-level subcluster region (reference :469-485)
+    cell_lut = {n: i for i, n in enumerate(obj.cell_names)}
+    gene_lut = {n: i for i, n in enumerate(obj.gene_order.names)}
+    regions = get_predicted_cnv_regions(obj, out, by="subcluster")
+    for gr in regions:
+        cell_idx = np.array([cell_lut[c] for c in gr.cells], np.int64)
+        for r in gr.regions:
+            gidx = [gene_lut[g] for g in r.genes]
+            out[np.ix_(cell_idx, gidx)] = r.state
+    return out
 
 
 def proxy_value_lut(num_states: int = 6) -> np.ndarray:

@@ -1,17 +1,26 @@
-"""The run() pipeline driver on the streaming engine.
+"""The run() pipeline.
 
 Counterpart of infercnv_tpu/runner/pipeline.py (``RunResult`` and ``run``,
-lines 33-1121) for the configurations that take the engine's fast path
-(``_engine_fast_ok``, :138-166):
+lines 33-1121):
 
   * steps 1-3: the gene filters, the depth factor and the hspike (i6);
-  * steps 4-14: the ``CnvEngine`` transform streamed in cell chunks on the
-    device (``_run_engine_residual``), and the same chain on the hspike
-    (``_hspike_residual_chain``);
-  * step 15: the hclust partitions 'qnorm', 'pheight', 'qgamma' and 'none';
-  * step 17: the i6 or i3 HMM on groups, subclusters or cells, with the
+  * steps 4-14: on the engine's fast path (``_engine_fast_ok``, :138-166)
+    the ``CnvEngine`` transform streamed in cell chunks on the device
+    (``_run_engine_residual``), and the same chain on the hspike
+    (``_hspike_residual_chain``); otherwise the op-by-op steps (:645-757),
+    each op on the device and mirrored onto the hspike: log, scale_data,
+    split_references, random_trees, the reference subtractions, the
+    threshold (numeric or 'auto'), the smooth (kernels 3 and 5), median
+    centring (kernel 7), chromosome-end trimming, invert log;
+  * step 15: the Leiden partition (PCA and kNN on the device, from the
+    engine's residual kept on the device when it fits), the hclust cuts,
+    the per-chromosome subclusters;
+  * step 16: outlier pruning;
+  * step 17: the i6 or i3 HMM on groups, subclusters (or, for i6 with
+    per-chromosome Leiden subclusters, per chromosome) or cells, with the
     region reports;
-  * step 20: the lazy proxy values; step 22: denoise; step 23: return.
+  * step 20: the lazy proxy values; step 21: the non-DE gene mask;
+    step 22: denoise; step 23: return.
 
 The object stays numpy on the host, as the reference keeps it; rows move to
 the device only inside the steps that compute there.  Host statistics (the
@@ -22,10 +31,8 @@ version; ``device=None`` runs on CUDA and raises without it.
 
 Options whose modules are not ported yet are refused before any work with a
 NotImplementedError naming the ROADMAP item (``_refuse_unported``): the
-checkpoints and RDS output, the plots, the Bayesian filter (A7), the DE
-mask and every configuration that leaves the engine's fast path (A5), the
-Leiden and random_trees partitions and the per-chromosome subclusters (A6),
-the device mesh (A8) and the splatter simulation (A9).
+checkpoints and RDS output, the plots and the Bayesian filter (A7), the
+device mesh (A8) and the splatter simulation (A9).
 """
 
 from __future__ import annotations
@@ -42,14 +49,18 @@ from infercnv_tpu_torch.device import DeviceLike, resolve_device
 from infercnv_tpu_torch.models import hmm as hmm_mod
 from infercnv_tpu_torch.models.hspike import build_hspike
 from infercnv_tpu_torch.ops import transforms as T
-from infercnv_tpu_torch.ops.smoothing import smooth_by_chromosome
+from infercnv_tpu_torch.ops.smoothing import (
+    smooth_by_chromosome,
+    smooth_by_chromosome_coordinates,
+)
 from infercnv_tpu_torch.report.regions import generate_cnv_region_reports
 from infercnv_tpu_torch.runner.config import RunConfig
 from infercnv_tpu_torch.subcluster.partition import (
     PHASE_TIMES,
     define_tumor_subclusters,
+    split_references,
 )
-from infercnv_tpu_torch.utils.logging import log_info, set_debug
+from infercnv_tpu_torch.utils.logging import log_info, log_warn, set_debug
 from infercnv_tpu_torch.utils.profiling import StepTimer
 
 
@@ -144,26 +155,13 @@ def _refuse_unported(cfg: RunConfig) -> None:
     if cfg.HMM and cfg.BayesMaxPNormal > 0:
         refuse("BayesMaxPNormal > 0 with HMM", "A7",
                "the Bayesian filter; pass BayesMaxPNormal=0")
-    if cfg.mask_nonDE_genes:
-        refuse("mask_nonDE_genes", "A5", "the DE mask of step 21")
-    if (cfg.analysis_mode == "subclusters"
-            and cfg.tumor_subcluster_partition_method in ("leiden", "random_trees")):
-        refuse(f"tumor_subcluster_partition_method="
-               f"{cfg.tumor_subcluster_partition_method!r}", "A6",
-               "use 'qnorm', 'pheight', 'qgamma' or 'none'")
-    if cfg.per_chr_hmm_subclusters:
-        refuse("per_chr_hmm_subclusters", "A6", "the per-chromosome Leiden")
+    if cfg.plot_steps:
+        refuse("plot_steps=True", "A7", "the per-step heatmaps")
     if cfg.n_devices or cfg.mesh is not None:
         refuse("n_devices / mesh", "A8", "more than one device")
     if (cfg.sim_method == "splatter" and cfg.up_to_step >= 3
             and ((cfg.HMM and cfg.HMM_type == "i6") or cfg.sim_foreground)):
         refuse("sim_method='splatter'", "A9", "the splatter simulation")
-    if cfg.up_to_step >= 4 and not _engine_fast_ok(cfg):
-        refuse("this configuration", "A5",
-               "it leaves the engine's fast path for the op-by-op steps 4-14 "
-               "(use_engine=False, up_to_step 4-14, scale_data, "
-               "num_ref_groups, chr-end trimming, outlier pruning, an 'auto' "
-               "or None max_centered_threshold, or plot_steps)")
 
 
 def _ref_onehot(obj: InferCNV) -> np.ndarray:
@@ -199,6 +197,58 @@ def _hspike_residual_chain(h: InferCNV, cfg: RunConfig, threshold: float,
     h.expr = _host(T.invert_log2(x))
 
 
+def _mirrored(obj: InferCNV, fn, dev: torch.device, *args) -> None:
+    """Apply an expr -> expr op on the device to obj and (recursively) its
+    hspike; the result comes back to the host (reference :99-103)."""
+    obj.expr = _host(fn(obj.expr, *args, device=dev))
+    if obj.hspike is not None:
+        _mirrored(obj.hspike, fn, dev, *args)
+
+
+def _subtract_ref(obj: InferCNV, inv_log: bool, use_bounds: bool,
+                  dev: torch.device) -> None:
+    """reference _subtract_ref (:106-117) on the device, mirrored onto the
+    hspike."""
+    x = T._f32(obj.expr, dev)       # one upload for the means and the subtraction
+    means = T.ref_group_gene_means(x, _ref_onehot(obj), inv_log=inv_log)
+    obj.expr = _host(T.subtract_ref_expr(x, means, use_bounds=use_bounds))
+    if obj.hspike is not None:
+        _subtract_ref(obj.hspike, inv_log, use_bounds, dev)
+
+
+def _smooth(obj: InferCNV, cfg: RunConfig, dev: torch.device) -> None:
+    """Step 10 (reference :120-135): kernels 3 or 5 on the device."""
+    if cfg.smooth_method == "coordinates":
+        y = smooth_by_chromosome_coordinates(obj.expr, obj.gene_order,
+                                             cfg.window_length, device=dev)
+    else:
+        y = smooth_by_chromosome(obj.expr, obj.gene_order, cfg.window_length,
+                                 cfg.smooth_method, device=dev)
+    obj.expr = _host(y)
+    if obj.hspike is not None:
+        # hspike always uses gene-window smoothing (fake genome positions);
+        # coordinates mode mirrors with window 51 (reference :2421-2424)
+        h = obj.hspike
+        if cfg.smooth_method == "coordinates":
+            y = smooth_by_chromosome(h.expr, h.gene_order, 51, "pyramidinal",
+                                     device=dev)
+        else:
+            method = "runmeans" if cfg.smooth_method == "runmeans" else "pyramidinal"
+            y = smooth_by_chromosome(h.expr, h.gene_order, cfg.window_length,
+                                     method, device=dev)
+        h.expr = _host(y)
+
+
+def _remove_genes_at_chr_ends(obj: InferCNV, window_length: int) -> None:
+    """Step 13 (reference :374-380), host."""
+    drop = T.genes_at_chr_ends(obj.gene_order, window_length)
+    if drop.size == 0:
+        raise RuntimeError("No genes removed at chr ends ... something wrong here")
+    obj.remove_genes(drop)
+    if obj.hspike is not None:
+        _remove_genes_at_chr_ends(obj.hspike, window_length)
+
+
 def _norm_factor(obj: InferCNV) -> float:
     """Depth-norm factor = median library size (inferCNV_ops.R:3095), from
     the reference's host float32 sums (:197-212)."""
@@ -206,26 +256,31 @@ def _norm_factor(obj: InferCNV) -> float:
 
 
 def _stream_cpu(engine, src: np.ndarray, out: np.ndarray, chunk: int,
-                nf: float, ml, mr) -> Dict[str, float]:
+                nf: float, ml, mr, out_dtype: torch.dtype,
+                keep: Optional[list]) -> Dict[str, float]:
     for b in range(0, src.shape[0], chunk):
         r = engine.transform_chunk(src[b:b + chunk], nf, ml, mr)
-        out[b:b + r.shape[0]] = r.float().numpy()
+        out[b:b + r.shape[0]] = r.to(out_dtype).float().numpy()
+        if keep is not None:
+            keep.append((b, r.shape[0], r))
     return {}
 
 
 def _stream_cuda(engine, src: np.ndarray, out: np.ndarray, chunk: int,
-                 nf: float, ml, mr) -> Dict[str, float]:
+                 nf: float, ml, mr, out_dtype: torch.dtype,
+                 keep: Optional[list]) -> Dict[str, float]:
     """Stream the chunks through the card with the copies overlapped: each
     chunk is staged into one of two pinned host buffers, uploaded on a copy
     stream, transformed on the current stream and downloaded into one of
     two pinned buffers on a second copy stream, so the copies of chunk i+1
     and i-1 run beside chunk i's kernels (the reference double-buffers,
-    :296-327).  Returns the summed seconds of each part (CUDA events for
-    the card's, the host clock for the pinned staging)."""
+    :296-327).  The download is in out_dtype.  With `keep` (a list), each
+    chunk's residual stays on the card as (first row, rows, tensor) for
+    step 15.  Returns the summed seconds of each part (CUDA events for the
+    card's, the host clock for the pinned staging)."""
     dev = engine.device
     C, G = src.shape
-    odt = {"float32": torch.float32, "float16": torch.float16,
-           "bfloat16": torch.bfloat16}[engine.config.out_dtype]
+    odt = out_dtype
     rows = min(chunk, C)
     comp = torch.cuda.current_stream(dev)
     h2d, d2h = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
@@ -279,11 +334,13 @@ def _stream_cuda(engine, src: np.ndarray, out: np.ndarray, chunk: int,
             d2h.wait_event(consumed[s])
             a = event()
             a.record(d2h)
-            pin_out[s][:nb].copy_(r, non_blocking=True)
+            pin_out[s][:nb].copy_(r.to(odt), non_blocking=True)
             r.record_stream(d2h)
             done = event()
             done.record(d2h)
         spans.append(("d2h", a, done))
+        if keep is not None:
+            keep.append((b, nb, r))
         del r
         if pending:
             drain(*pending.pop(0))
@@ -316,18 +373,35 @@ def _device_probe(engine, probe_src: np.ndarray, nf: float, ml, mr,
 
 
 def _run_engine_residual(obj: InferCNV, cfg: RunConfig, timer: StepTimer,
-                         dev: torch.device) -> None:
+                         dev: torch.device) -> Optional[list]:
     """STEPS 4-14 as the fused CnvEngine transform (log -> bounds subtract
     -> clamp -> smooth -> median-center -> subtract -> unlog), streamed in
     cell chunks (reference :215-371).  obj.expr holds the raw counts (the
-    engine's normalisation is idempotent on normalised input)."""
+    engine's normalisation is idempotent on normalised input).
+
+    When step 15 will run the Leiden partition on the whole-genome rows and
+    the residual fits (the reference's rule, :237-242), the chunks' float32
+    residuals stay on the device and are returned as [(first row, rows,
+    tensor)] for step 15; otherwise returns None."""
     from infercnv_tpu_torch.models.hmm import HMMParams
     from infercnv_tpu_torch.parallel.engine import CnvEngine, EngineConfig
 
     log_info("STEPS 04-14: fused engine transform (use_engine fast path)")
     with timer.step("04-14_engine_transform"):
+        # retaining the residual on the device costs ~2x C*G*4 bytes
+        # (chunks + step 15's gene-filtered copy); the same guard as the
+        # reference's, so matrices that fit only because they stream are
+        # not held
+        resid_bytes = 2.2 * obj.num_cells * obj.num_genes * 4
+        keep_device = (cfg.analysis_mode == "subclusters"
+                       and cfg.tumor_subcluster_partition_method == "leiden"
+                       and not cfg.per_chr_hmm_subclusters
+                       and resid_bytes < 11e9)
         tdtype = cfg.engine_transfer_dtype
-        kernel_out = tdtype if tdtype in ("float16", "bfloat16") else "float32"
+        narrow = tdtype in ("float16", "bfloat16")
+        # chunks kept for step 15 stay f32; otherwise the kernel stores the
+        # download dtype directly (rounding identical to a cast afterwards)
+        kernel_out = tdtype if (narrow and not keep_device) else "float32"
         ecfg = EngineConfig(
             window_length=cfg.window_length,
             smooth_method=cfg.smooth_method,
@@ -364,10 +438,14 @@ def _run_engine_residual(obj: InferCNV, cfg: RunConfig, timer: StepTimer,
                             shape=(obj.num_cells, obj.num_genes))
         else:
             out = np.empty((obj.num_cells, obj.num_genes), np.float32)
-        if kernel_out != "float32":
-            log_info(f"-engine chunk downloads as {tdtype} (kernel-direct)")
+        if narrow:
+            log_info(f"-engine chunk downloads as {tdtype}"
+                     + (" (kernel-direct)" if kernel_out == tdtype else ""))
         stream = _stream_cuda if dev.type == "cuda" else _stream_cpu
-        parts = stream(engine, obj.expr, out, chunk, norm_factor, ml, mr)
+        device_chunks = [] if keep_device else None
+        parts = stream(engine, obj.expr, out, chunk, norm_factor, ml, mr,
+                       getattr(torch, tdtype) if narrow else torch.float32,
+                       device_chunks)
         obj.expr = out
     for name, sec in parts.items():
         timer.records.append({"step": f"04-14_engine_transform.{name}",
@@ -383,6 +461,7 @@ def _run_engine_residual(obj: InferCNV, cfg: RunConfig, timer: StepTimer,
         with timer.step("04-14_hspike_mirror"):
             _hspike_residual_chain(obj.hspike, cfg,
                                    float(cfg.max_centered_threshold), dev)
+    return device_chunks
 
 
 def _clear_noise(obj: InferCNV, cfg: RunConfig) -> None:
@@ -490,36 +569,162 @@ def run(obj: InferCNV, out_dir: Optional[str] = None,
     if done(3):
         return result
 
-    # STEPS 4-14: one engine pass per cell chunk (_refuse_unported has
-    # refused every configuration that would leave this path)
-    _run_engine_residual(obj, cfg, timer, dev)
-    if (not cfg.save_final_rds and obj.counts is not None
-            and getattr(obj.counts, "nbytes", 0) > 4_000_000_000):
-        # no RDS outputs will ever read the raw counts again
-        log_info("-releasing raw counts matrix "
-                 f"({obj.counts.nbytes/1e9:.1f} GB; no RDS outputs requested)")
-        obj.counts = None
+    # STEPS 4-14 on the engine's fast path: one engine pass per cell chunk
+    device_chunks = None
+    if _engine_fast_ok(cfg):
+        device_chunks = _run_engine_residual(obj, cfg, timer, dev)
+        if (not cfg.save_final_rds and obj.counts is not None
+                and getattr(obj.counts, "nbytes", 0) > 4_000_000_000):
+            # no RDS outputs will ever read the raw counts again
+            log_info("-releasing raw counts matrix "
+                     f"({obj.counts.nbytes/1e9:.1f} GB; no RDS outputs requested)")
+            obj.counts = None
+    else:
+        # STEPS 4-14 op by op (reference :645-757): each op on the device,
+        # its result back on the host, mirrored onto the hspike
+        log_info("STEP 04: log transformation of data")
+        with timer.step("04_log"):
+            _mirrored(obj, T.log2xplus1, dev)
+        if done(4):
+            return result
 
-    # STEP 15: subclustering (hclust partitions) / plain clustering
-    if cfg.analysis_mode == "subclusters":
+        if cfg.scale_data:
+            log_info("STEP 05: scaling all expression data")
+            with timer.step("05_scale"):
+                _mirrored(obj, T.scale_infercnv_expr, dev)
+        if done(5):
+            return result
+
+        if cfg.num_ref_groups is not None:
+            if not obj.has_reference_cells():
+                raise ValueError("no reference cells defined; cannot split into groups")
+            log_info(f"STEP 06: splitting reference data into {cfg.num_ref_groups} clusters")
+            with timer.step("06_split_references"):
+                split_references(obj, cfg.num_ref_groups, "complete", device=dev)
+        if done(6):
+            return result
+
+        # random_trees subclustering happens pre-residual (reference :674-686)
+        if (cfg.analysis_mode == "subclusters"
+                and cfg.tumor_subcluster_partition_method == "random_trees"):
+            log_info("STEP 07: computing tumor subclusters via random_trees")
+            with timer.step("07_random_trees"):
+                define_tumor_subclusters(
+                    obj, p_val=cfg.tumor_subcluster_pval,
+                    hclust_method=cfg.hclust_method,
+                    cluster_by_groups=cfg.cluster_by_groups,
+                    partition_method="random_trees",
+                    z_score_filter=cfg.z_score_filter, seed=cfg.seed,
+                    device=dev)
+        if done(7):
+            return result
+
+        log_info("STEP 08: removing average of reference data (before smoothing)")
+        with timer.step("08_subtract_ref"):
+            _subtract_ref(obj, False, cfg.ref_subtract_use_mean_bounds, dev)
+        if done(8):
+            return result
+
+        if cfg.max_centered_threshold is not None:
+            with timer.step("09_threshold"):
+                threshold = cfg.max_centered_threshold
+                if isinstance(threshold, str) and threshold == "auto":
+                    lo, hi = T.get_average_bounds(obj.expr, device=dev)
+                    threshold = float(np.mean(np.abs([float(lo), float(hi)])))
+                    log_info(f"Setting max centered thresholds via auto to: +- {threshold:g}")
+                log_info(f"STEP 09: apply max centered expression threshold: {threshold}")
+                _mirrored(obj, T.apply_max_threshold_bounds, dev, float(threshold))
+        if done(9):
+            return result
+
+        log_info(f"STEP 10: Smoothing data per cell by chromosome ({cfg.smooth_method})")
+        with timer.step("10_smooth"):
+            _smooth(obj, cfg, dev)
+        if done(10):
+            return result
+
+        log_info("STEP 11: re-centering data across chromosome after smoothing")
+        with timer.step("11_center"):
+            _mirrored(obj, T.center_cells, dev, "median")
+        if done(11):
+            return result
+
+        log_info("STEP 12: removing average of reference data (after smoothing)")
+        with timer.step("12_subtract_ref"):
+            _subtract_ref(obj, False, cfg.ref_subtract_use_mean_bounds, dev)
+        if done(12):
+            return result
+
+        if cfg.remove_genes_at_chr_ends and cfg.smooth_method != "coordinates":
+            log_info("STEP 13: removing genes at chr ends")
+            with timer.step("13_chr_ends"):
+                _remove_genes_at_chr_ends(obj, cfg.window_length)
+        if done(13):
+            return result
+
+        log_info("STEP 14: invert log2(FC) to FC")
+        with timer.step("14_invert_log"):
+            _mirrored(obj, T.invert_log2, dev)
+        if done(14):
+            return result
+
+    # STEP 15: subclustering (leiden by default) / plain clustering;
+    # random_trees partitioned at step 7
+    if (cfg.analysis_mode == "subclusters"
+            and cfg.tumor_subcluster_partition_method != "random_trees"):
         log_info(f"STEP 15: computing tumor subclusters via {cfg.tumor_subcluster_partition_method}")
         with timer.step("15_subclusters"):
-            define_tumor_subclusters(
-                obj, p_val=cfg.tumor_subcluster_pval,
+            result.subclusters_per_chr = define_tumor_subclusters(
+                obj,
+                device_chunks=device_chunks,
+                p_val=cfg.tumor_subcluster_pval,
+                k_nn=cfg.k_nn,
+                leiden_method=cfg.leiden_method,
+                leiden_function=cfg.leiden_function,
+                leiden_resolution=cfg.leiden_resolution,
+                leiden_method_per_chr=cfg.leiden_method_per_chr,
+                leiden_function_per_chr=cfg.leiden_function_per_chr,
+                leiden_resolution_per_chr=cfg.leiden_resolution_per_chr,
+                hclust_method=cfg.hclust_method,
                 cluster_by_groups=cfg.cluster_by_groups,
                 partition_method=cfg.tumor_subcluster_partition_method,
-                z_score_filter=cfg.z_score_filter, device=dev)
+                per_chr_hmm_subclusters=cfg.per_chr_hmm_subclusters,
+                per_chr_hmm_subclusters_references=cfg.per_chr_hmm_subclusters_references,
+                z_score_filter=cfg.z_score_filter,
+                seed=cfg.seed,
+                # f16-transferred residuals carry f16-quantized values, so
+                # moving PCA rows as f16 is lossless and halves the copy
+                pca_upload_dtype=(np.float16
+                                  if cfg.engine_transfer_dtype == "float16"
+                                  else None),
+                device=dev)
+            device_chunks = None  # free the residual kept on the device
         for ph, sec in sorted(PHASE_TIMES.items(), key=lambda kv: -kv[1]):
             timer.records.append({"step": f"15_subclusters.{ph}",
                                   "seconds": round(sec, 4)})
-    else:
+    elif cfg.analysis_mode != "subclusters":
         log_info("STEP 15: Clustering samples (not defining tumor subclusters)")
         with timer.step("15_clustering"):
             define_tumor_subclusters(
                 obj, p_val=cfg.tumor_subcluster_pval,
+                hclust_method=cfg.hclust_method,
                 cluster_by_groups=cfg.cluster_by_groups, partition_method="none",
-                z_score_filter=cfg.z_score_filter, device=dev)
-    if done(15) or done(16):
+                z_score_filter=cfg.z_score_filter, seed=cfg.seed, device=dev)
+    device_chunks = None
+    if done(15):
+        return result
+
+    # STEP 16: optional outlier pruning (reference :851-864)
+    if cfg.prune_outliers:
+        log_info("STEP 16: Removing outliers")
+        with timer.step("16_prune_outliers"):
+            for o in (obj, obj.hspike):
+                if o is not None:
+                    o.expr = _host(T.remove_outliers_norm(
+                        o.expr, cfg.outlier_method_bound,
+                        cfg.outlier_lower_bound, cfg.outlier_upper_bound,
+                        device=dev))
+    if done(16):
         return result
 
     # STEP 17: HMM CNV prediction
@@ -544,12 +749,23 @@ def run(obj: InferCNV, out_dir: Optional[str] = None,
                 neutral = hmm_mod.NEUTRAL_STATE_I3
 
             if cfg.analysis_mode == "subclusters":
-                groups: Dict[str, np.ndarray] = {}
-                if obj.tumor_subclusters is not None:
-                    for _g, subs in obj.tumor_subclusters["subclusters"].items():
-                        groups.update(subs)
-                hmm_states = hmm_mod.predict_hmm_on_groups(
-                    obj, params, groups, trend_fits, factorized=True, device=dev)
+                if (cfg.per_chr_hmm_subclusters and cfg.HMM_type == "i6"
+                        and cfg.tumor_subcluster_partition_method == "leiden"
+                        and result.subclusters_per_chr):
+                    hmm_states = hmm_mod.predict_hmm_on_subclusters_per_chr(
+                        obj, params, result.subclusters_per_chr, trend_fits,
+                        device=dev)
+                else:
+                    groups: Dict[str, np.ndarray] = {}
+                    if obj.tumor_subclusters is not None:
+                        for _g, subs in obj.tumor_subclusters["subclusters"].items():
+                            groups.update(subs)
+                    if not groups:
+                        log_warn("No subclusters defined, running on whole samples")
+                        groups = {**obj.obs_groups, **obj.ref_groups}
+                    hmm_states = hmm_mod.predict_hmm_on_groups(
+                        obj, params, groups, trend_fits, factorized=True,
+                        device=dev)
             elif cfg.analysis_mode == "cells":
                 hmm_states = hmm_mod.predict_hmm_on_cells(obj, params, device=dev)
             else:  # samples
@@ -577,7 +793,22 @@ def run(obj: InferCNV, out_dir: Optional[str] = None,
     if cfg.HMM and hmm_states is not None:
         log_info("STEP 20: Converting HMM-based CNV states to repr expr vals")
         result._proxy_num_states = 6 if cfg.HMM_type == "i6" else 3
-    if done(20) or done(21):
+    if done(20):
+        return result
+
+    # STEP 21: optional DE-gene masking (reference :1035-1047)
+    if cfg.mask_nonDE_genes:
+        if not obj.has_reference_cells():
+            raise ValueError("cannot mask non-DE genes without reference cells")
+        log_info("STEP 21: Identify and mask non-DE genes")
+        from infercnv_tpu_torch.ops.de_mask import mask_non_DE_genes_basic
+
+        with timer.step("21_mask_nonDE"):
+            mask_non_DE_genes_basic(
+                obj, p_val_thresh=cfg.mask_nonDE_pval, test_use=cfg.test_use,
+                center_val=float(obj.expr.mean()),
+                require_DE_all_normals=cfg.require_DE_all_normals, device=dev)
+    if done(21):
         return result
 
     # STEP 22: denoising

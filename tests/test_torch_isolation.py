@@ -49,6 +49,7 @@ def test_every_module_imports_without_jax():
             + "".join(f"sys.modules[{m!r}] = None\n" for m in FORBIDDEN)
             + "import importlib\n"
             + "".join(f"importlib.import_module({m!r})\n" for m in mods)
+            + "assert sys.modules['infercnv_tpu_torch.native']._lib is None\n"
             + "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,

@@ -1,9 +1,10 @@
-"""Step 15's hclust partitions and the region reports: the port
-(device="cpu") against the JAX package on the same numpy inputs.
+"""Step 15's partitions and the region reports: the port (device="cpu")
+against the JAX package on the same numpy inputs.
 
 Exact: the z-score gene filter, the float64 distances of groups up to 1,024
-cells, the linkages, the partitions (on planted data, where Ward's merge
-order has no near ties), and the bytes of every report file."""
+cells, the linkages, the hclust, Leiden and random_trees partitions (on
+planted data, where Ward's merge order and the kNN have no near ties), and
+the bytes of every report file."""
 
 import filecmp
 import os
@@ -105,15 +106,35 @@ def test_partitions_equal(method, by_groups):
         # the planted clones come out as subclusters
         assert len(t.tumor_subclusters["subclusters"]["tumA"]) >= 2
     assert set(tpart.PHASE_TIMES) == {"z_filter", "gene_filter", "slice"}
+    assert tpart.ROWS_FROM == "host"
 
 
 @pytest.mark.parametrize("method", ["leiden", "random_trees"])
-def test_unported_partitions_raise(method):
-    t = infercnv_from_numpy(vars(_planted(with_hspike=False)))
-    with pytest.raises(NotImplementedError, match="A6"):
-        tpart.define_tumor_subclusters(t, partition_method=method, device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        tpart.split_references(t, 2)
+def test_leiden_and_random_trees_partitions_equal(monkeypatch, method):
+    """The partitions that were refused until step 15 was ported in full,
+    now against the reference on the same planted clones (the reference's
+    PCA range-finder draw handed across), with split_references; 'shc'
+    stays refused as the reference refuses it."""
+    from test_torch_pca_knn import jax_omega
+    from infercnv_tpu_torch.subcluster import pca as tpca
+
+    monkeypatch.setattr(tpca, "range_omega", jax_omega)
+    j = _planted()
+    t = infercnv_from_numpy(vars(j))
+    kw = dict(p_val=0.1, partition_method=method, k_nn=8, random_trees_window_size=11)
+    jpart.define_tumor_subclusters(j, **kw)
+    tpart.define_tumor_subclusters(t, device="cpu", **kw)
+    for g, subs in j.tumor_subclusters["subclusters"].items():
+        assert list(t.tumor_subclusters["subclusters"][g]) == list(subs)
+        for name, idx in subs.items():
+            np.testing.assert_array_equal(t.tumor_subclusters["subclusters"][g][name], idx)
+    _assert_subclusters_equal(t.hspike.tumor_subclusters, j.hspike.tumor_subclusters)
+    assert len(t.tumor_subclusters["subclusters"]["tumA"]) >= 2
+    jpart.split_references(j, 2)
+    tpart.split_references(t, 2, device="cpu")
+    assert list(t.ref_groups) == list(j.ref_groups) == ["refgrp-1", "refgrp-2"]
+    for name in j.ref_groups:
+        np.testing.assert_array_equal(t.ref_groups[name], j.ref_groups[name])
     with pytest.raises(NotImplementedError):
         tpart.define_tumor_subclusters(t, partition_method="shc", device="cpu")
 

@@ -7,9 +7,13 @@ equal, and the 17_HMM_pred region reports byte-equal.  The i3 HMM draws
 nothing; for i6 the port's build_hspike and cnv_mean_sd_trend_fit are
 replaced by the reference's hspike and trend fits, carried across, since
 the two packages draw different random bits (their draws are held to their
-distribution in tests/test_torch_hspike.py).  Options whose modules are not
+distribution in tests/test_torch_hspike.py), and so is the reference's PCA
+range-finder draw for the Leiden partition.  Options whose modules are not
 ported raise NotImplementedError naming their ROADMAP item, before any
-work."""
+work; the options that were refused until the op-by-op steps, the DE mask
+and the Leiden, random_trees and per-chromosome partitions were ported run
+against the reference (test_formerly_refused_options_match_the_reference;
+tests/test_torch_pipeline_ops.py holds them in more depth)."""
 
 import filecmp
 import os
@@ -111,15 +115,7 @@ REFUSED = [
     (dict(save_rds=True), "A7"),
     (dict(no_plot=False), "A7"),
     (dict(HMM=True, BayesMaxPNormal=0.5), "A7"),
-    (dict(mask_nonDE_genes=True), "A5"),
-    (dict(use_engine=False), "A5"),
-    (dict(up_to_step=9), "A5"),
-    (dict(scale_data=True), "A5"),
-    (dict(max_centered_threshold="auto"), "A5"),
-    (dict(analysis_mode="subclusters"), "A6"),          # leiden by default
-    (dict(analysis_mode="subclusters",
-          tumor_subcluster_partition_method="random_trees"), "A6"),
-    (dict(per_chr_hmm_subclusters=True), "A6"),
+    (dict(plot_steps=True), "A7"),
     (dict(n_devices=2), "A8"),
     (dict(HMM=True, sim_method="splatter"), "A9"),
 ]
@@ -163,3 +159,40 @@ def test_up_to_step_returns_the_reference_object(tmp_path, step):
     assert (rt.hmm_states is None) == (rj.hmm_states is None)
     if rj.hmm_states is not None:
         np.testing.assert_array_equal(rt.hmm_states, rj.hmm_states)
+
+
+#: the options refused until the op-by-op steps 4-14, the DE mask of step 21
+#: (ROADMAP A5) and the Leiden, random_trees and per-chromosome partitions
+#: (A6) were ported, each now run against the reference
+FORMERLY_REFUSED = [
+    dict(mask_nonDE_genes=True),
+    dict(use_engine=False),
+    dict(up_to_step=9),
+    dict(scale_data=True),
+    dict(max_centered_threshold="auto"),
+    dict(analysis_mode="subclusters"),          # leiden by default
+    dict(analysis_mode="subclusters", tumor_subcluster_partition_method="random_trees"),
+    dict(analysis_mode="subclusters", per_chr_hmm_subclusters=True),
+]
+
+
+@pytest.mark.parametrize("kw", FORMERLY_REFUSED, ids=lambda kw: "-".join(
+    f"{k}={v}" for k, v in kw.items()))
+def test_formerly_refused_options_match_the_reference(tmp_path, carried, monkeypatch, kw):
+    from test_torch_pca_knn import jax_omega
+    from torch_port_util import one_thread_a_pool
+    from infercnv_tpu_torch.subcluster import pca as tpca
+
+    monkeypatch.setattr(tpca, "range_omega", jax_omega)
+    args = {"analysis_mode": "samples", "HMM": True, "HMM_type": "i6", "k_nn": 8, **kw}
+    with one_thread_a_pool():
+        rt, rj, dt, dj = _pair(tmp_path, dict(n_normal=12, n_tumor=12, del_factor=0.7,
+                                              amp_factor=1.3), **args)
+    if "up_to_step" in kw:
+        np.testing.assert_allclose(rt.infercnv_obj.expr, rj.infercnv_obj.expr, **TOL)
+        assert rt.hmm_states is None and rj.hmm_states is None
+        assert rt.infercnv_obj.tumor_subclusters is None
+        return
+    _assert_same_run(rt, rj, dt, dj)
+    for g, subs in rj.infercnv_obj.tumor_subclusters["subclusters"].items():
+        assert list(rt.infercnv_obj.tumor_subclusters["subclusters"][g]) == list(subs)

@@ -7,7 +7,11 @@ device="cpu", where each kernel wrapper runs its plain PyTorch version.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
+import threadpoolctl
+import torch
 
 from infercnv_tpu.core.genome import GeneOrder as JaxGeneOrder
 from infercnv_tpu.models.hmm import HMMParams as JaxHMMParams
@@ -92,3 +96,18 @@ def np_(a) -> np.ndarray:
     if a.dtype.name == "bfloat16":
         a = a.astype(np.float32)
     return a
+
+
+@contextlib.contextmanager
+def one_thread_a_pool():
+    """Run a block with one thread in torch's pool and in the BLAS pools.
+    The tests are small problems, and the suite runs in several worker
+    processes: pools of a thread a core in each of them spin against each
+    other (a test of under a second took minutes so)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with threadpoolctl.threadpool_limits(1):
+            yield
+    finally:
+        torch.set_num_threads(n)

@@ -37,18 +37,28 @@ Phases, each printing one JSON line:
   reference   the default engine on 512 cells, the card against the CPU
   coords_reference  the coordinates + i3 engine on 512 cells, the card
               against the CPU, full_chunk included
+  bayes_sampler  the Bayesian filter's Gibbs sampler (PyTorch ops, no
+              kernel of its own) on tests/test_bayes_scale.py's three cases,
+              then timed on one block of the Bayes workload's size (48
+              regions x 3,125 cells, 6 states, 6 chains, 1,200 sweeps)
   run_i6_subclusters, run_i3_coords_cells  run() on 34,816 cells x 8448
-              genes (make_run_object): i6 with qnorm subclusters; i3 with
-              the coordinates smooth in cells mode
+              genes (make_run_object): i6 with qnorm subclusters and the
+              Bayesian filter at BayesMaxPNormal=0.5, the planted calls
+              gated on the filtered states and reports; i3 with the
+              coordinates smooth in cells mode (BayesMaxPNormal=0)
   run_i6_leiden  the same object, run()'s default Leiden partition with
-              cluster_by_groups=False: one 32,768-cell group (tiled kNN,
-              the dendrogram on device-computed subcluster profiles),
-              step 15 from the residual kept on the card
+              cluster_by_groups=False and the Bayesian filter: one
+              32,768-cell group (tiled kNN, the dendrogram on
+              device-computed subcluster profiles), step 15 from the
+              residual kept on the card
   run_op_by_op  the same object, use_engine=False up to step 14 (kernels
               3 and 7 through the chromosome smooth and the centring),
               against the engine's residual within 2e-4
   run_reference, run_subcluster_reference  run() on 1,024 cells, the card
-              against the CPU: i6 with qnorm; the Leiden with
+              against the CPU: i6 with qnorm at the defaults
+              BayesMaxPNormal=0.5 and save_rds=True (modelled regions,
+              posteriors, filtered states, checkpoints, the final RDS read
+              back, and a second run() that resumes); the Leiden with
               per-chromosome subclusters and HMM; the op-by-op options
               with random_trees, split references and the DE mask
 Each path phase runs two warm-up chunks, then sets every launch count to 0
@@ -98,7 +108,15 @@ RUN_OBS = 4096
 RUN_REF = 1024
 RUN_CHECK_OBS = 96          # run_reference: 8 x 96 + 2 x 128 = 1,024 cells
 RUN_CHECK_REF = 128
-RUN_KW = dict(denoise=True, save_rds=False, no_plot=True, BayesMaxPNormal=0)
+#: the run phases at 34,816 cells keep save_rds=False: a compressed
+#: checkpoint of the 1.18 GB matrix a step, and the gzipped float64 RDS of
+#: 294 M values, cost minutes of host time there; checkpoints, resume and
+#: the RDS run in run_reference (1,024 cells)
+RUN_KW = dict(denoise=True, save_rds=False, no_plot=True)
+#: the Bayes workload of benchmarks/bayes100k.py (BASELINE config 4):
+#: 100,000 cells in 32 tumour subclusters, ~50 regions, i6 (6 states, 6
+#: chains, 200 + 1,000 sweeps): one region block of 48 regions x 3,125 cells
+BAYES_R, BAYES_CMAX = 48, 3125
 #: GRCh38 chromosome lengths, chr1..chr22, in Mbp
 GRCH38_MBP = (248.96, 242.19, 198.30, 190.21, 181.54, 170.81, 159.35, 145.14,
               138.39, 133.80, 135.09, 133.28, 114.36, 107.04, 101.99, 90.34,
@@ -419,10 +437,11 @@ def run_calls(res, neutral: int) -> dict:
                                    "amp_chr5": float(min(v[1] for v in per_sub.values()))}}
 
 
-def report_regions(out_dir: Path, neutral: int) -> dict:
-    """{group: {(chr, "loss" | "gain")}} of a run's 17_HMM_pred
-    pred_cnv_regions report."""
-    path = next(Path(out_dir).glob("17_HMM_pred*.pred_cnv_regions.dat"))
+def report_regions(out_dir: Path, neutral: int, prefix: str = "17_HMM_pred") -> dict:
+    """{group: {(chr, "loss" | "gain")}} of a run's pred_cnv_regions report
+    (step 17's, or with prefix "HMM_CNV_predictions" the filtered one of
+    step 19)."""
+    path = next(Path(out_dir).glob(f"{prefix}*.pred_cnv_regions.dat"))
     found: dict = {}
     for line in path.read_text().splitlines()[1:]:
         group, _name, state, chrom = line.split("\t")[:4]
@@ -745,6 +764,125 @@ def card_against_cpu(obj, out_root: Path, name: str, dev, **kw) -> dict:
                 expr_max_abs_err=err, denoise_edge_flips=flips)
 
 
+def bayes_sampler(dev, smi) -> None:
+    """The Bayesian filter's Gibbs sampler on the card: tests/test_bayes_scale.py's
+    three cases as gates (the sharp posterior E[theta_1] = 9/11 within 0.05
+    with half the slots masked, the masked counts, invariance to extra
+    padding within 0.05 with the same argmax), then one block at the size
+    of the repository's Bayes workload, timed (reported, not gated): wall
+    seconds, ms a sweep, peak memory, kernels a sweep (torch.profiler), and
+    the bytes a sweep must move (ll and the mask read, the draws read and
+    written as int64, eps_sum read and written) at 3.35 TB/s as its bound."""
+    import numpy as np
+    import torch
+
+    from infercnv_tpu_torch.models import bayes
+
+    def gibbs(ll, mask, chains, burn, iters, seed=0):
+        th, ef, tr = bayes._gibbs_all_regions(
+            bayes.block_generator(seed, 0, dev), torch.from_numpy(ll).to(dev),
+            torch.from_numpy(mask).to(dev), chains, burn, iters)
+        return th.cpu().numpy(), ef.cpu().numpy(), tr.cpu().numpy()
+
+    # sharp posterior, masked counts
+    ll = np.zeros((1, 16, 3), np.float32)
+    ll[0, :8, 0] = 8.0
+    mask = np.zeros((1, 16), np.float32)
+    mask[0, :8] = 1.0
+    th, ef, _ = gibbs(ll, mask, 3, 50, 300, seed=2)
+    sharp = float(th[0, 0])
+    require(abs(sharp - 9 / 11) < 0.05, f"bayes_sampler: E[theta_1] {sharp}, not 9/11")
+    masked = float(ef[0, :8, 0].mean())
+    require(masked > 0.95, f"bayes_sampler: real cells in state 1 {masked} <= 0.95")
+    # padding invariance
+    rng = np.random.default_rng(1)
+    ll = np.zeros((2, 30, 3), np.float32)
+    ll[0, :, 0] = 5.0
+    ll[1, :, 2] = 5.0
+    ll += rng.normal(0, 0.1, ll.shape).astype(np.float32)
+    mask = np.ones((2, 30), np.float32)
+    mask[1, 20:] = 0.0
+    ll *= mask[..., None]
+    th1, ef1, _ = gibbs(ll, mask, 3, 50, 200)
+    th2, ef2, _ = gibbs(np.concatenate([ll, np.zeros((2, 14, 3), np.float32)], 1),
+                        np.concatenate([mask, np.zeros((2, 14), np.float32)], 1), 3, 50, 200)
+    pad_err = float(max(np.abs(th1 - th2).max(), np.abs(ef1[0] - ef2[0, :30]).max()))
+    require(pad_err < 0.05 and th1.argmax(1).tolist() == th2.argmax(1).tolist() == [0, 2],
+            f"bayes_sampler: padding changed the posterior (max {pad_err})")
+
+    # one block at the Bayes workload's size: regions of 3,125 cells whose
+    # cells favour one state each (a CNV call) with N(0, 1) noise
+    R, C, S, ch = BAYES_R, BAYES_CMAX, 6, bayes.N_CHAINS_I6
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    ll = torch.randn((R, C, S), generator=gen, device=dev)
+    ll[torch.arange(R, device=dev), :, torch.arange(R, device=dev) % S] += 3.0
+    mask = torch.ones((R, C), device=dev)
+    sweeps = bayes.N_BURN + bayes.N_ITER
+    per_sweep = None
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            bayes._gibbs_all_regions(bayes.block_generator(SEED, 0, dev), ll, mask,
+                                     ch, 2, 3)
+            torch.cuda.synchronize()
+        n_kernels = sum(e.count for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA)
+        per_sweep = n_kernels / 5
+    except Exception as e:  # the kernel count is reported, never gated
+        print(f"chip_smoke: bayes_sampler: no profile ({e})", file=sys.stderr, flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    a.record()
+    th, ef, tr = bayes._gibbs_all_regions(bayes.block_generator(SEED, 0, dev), ll,
+                                          mask, ch, bayes.N_BURN, bayes.N_ITER)
+    b.record()
+    b.synchronize()
+    wall = time.perf_counter() - t0
+    dev_ms = a.elapsed_time(b)
+    peak = torch.cuda.max_memory_allocated() - base
+    favoured = (th.argmax(1).cpu() == torch.arange(R) % S).float().mean().item()
+    require(bool(torch.isfinite(th).all()) and favoured == 1.0,
+            f"bayes_sampler: the block's posterior misses the favoured states ({favoured})")
+    sweep_bytes = R * C * (4 * S + 4 + 2 * 8 * ch + 2 * 4 * S)
+    bound_ms = sweep_bytes / HBM_BYTES_PER_S * 1e3
+    emit(phase="bayes_sampler", card=smi, sharp_theta_1=sharp, masked_real_share=masked,
+         padding_max_abs_err=pad_err, regions=R, cells=C, states=S, chains=ch,
+         sweeps=sweeps, wall_s=wall, device_ms=dev_ms, ms_per_sweep=dev_ms / sweeps,
+         peak_memory_gb=peak / 1e9, kernels_per_sweep=per_sweep,
+         bytes_per_sweep=sweep_bytes, bound_ms_per_sweep=bound_ms, bound_by="bytes")
+    del ll, mask, th, ef, tr
+    torch.cuda.empty_cache()
+
+
+def bayes_summary(res) -> dict:
+    """Step 18's numbers from a run() result: seconds of 18_bayes and its
+    parts and of 19_region_reports, regions modelled, removed and
+    reassigned, the sampler's sweeps and the largest R-hat."""
+    import numpy as np
+
+    from infercnv_tpu_torch.viz.bayes_plots import gelman_rubin
+
+    b = res.bayes_result
+    secs = {r["step"]: r["seconds"] for r in res.timer.records
+            if r["step"].startswith(("18_bayes", "19_region_reports"))}
+    rhat = (float(np.nanmax(gelman_rubin(b.theta_traces)))
+            if b is not None and b.theta_traces is not None else None)
+    return {"seconds": secs,
+            "regions_modelled": len(b.cnv_region_names) if b else 0,
+            "removed": len(b.removed_regions) if b else 0,
+            "reassigned": len(b.reassigned) if b else 0,
+            "sweeps": b.sweeps if b else 0,
+            "sampler_ms_per_sweep": (1e3 * b.seconds["sampler"] / b.sweeps
+                                     if b and b.sweeps else None),
+            "max_rhat": rhat}
+
+
 def run_phases(dev, smi, out_root: Path) -> dict:
     """The run() phases; returns each full-width phase's launches."""
     import filecmp
@@ -752,6 +890,7 @@ def run_phases(dev, smi, out_root: Path) -> dict:
     import numpy as np
     import torch
 
+    from infercnv_tpu_torch.io.rds import read_rds_infercnv
     from infercnv_tpu_torch.runner.pipeline import run as run_pipeline
 
     launches = {}
@@ -760,27 +899,31 @@ def run_phases(dev, smi, out_root: Path) -> dict:
     obj, make_s = make_run_object(go, RUN_OBS, RUN_REF)
     res, wall, n = drive_run(obj, out_root / "run_i6_subclusters", dev, HMM=True,
                              HMM_type="i6", analysis_mode="subclusters",
-                             tumor_subcluster_partition_method="qnorm")
+                             tumor_subcluster_partition_method="qnorm",
+                             BayesMaxPNormal=0.5)
     launches["run_i6_subclusters"] = n
     for k in ("residual_fused", "viterbi", "smooth_banded", "row_median"):
         require(n[k] > 0, f"{k} was not launched by run_i6_subclusters")
     C, G = res.infercnv_obj.expr.shape
     require(bool(np.isfinite(res.infercnv_obj.expr).all()),
             "run_i6_subclusters: the final expr is not finite")
+    # the planted calls on the states the Bayesian filter left (step 19)
+    require(res.bayes_result is not None, "run_i6_subclusters: step 18 did not run")
     calls = run_calls(res, neutral=3)
     sub = calls["per_subcluster_min"]
     require(sub["del_chr2"] > 0.7 and sub["amp_chr5"] > 0.7
             and calls["neutral_obs0_3_refs"] > 0.9,
             f"run_i6_subclusters: planted CNVs not called: {calls}")
-    regions = report_regions(out_root / "run_i6_subclusters", 3)
-    missing = [s for k in range(4, 8)
-               for s in res.infercnv_obj.tumor_subclusters["subclusters"][f"obs{k}"]
-               if not {("chr2", "loss"), ("chr5", "gain")} <= regions.get(s, set())]
-    require(not missing, f"run_i6_subclusters: no chr2 loss / chr5 gain region "
-            f"reported for {missing[:5]}")
+    for prefix in ("17_HMM_pred", "HMM_CNV_predictions"):
+        regions = report_regions(out_root / "run_i6_subclusters", 3, prefix)
+        missing = [s for k in range(4, 8)
+                   for s in res.infercnv_obj.tumor_subclusters["subclusters"][f"obs{k}"]
+                   if not {("chr2", "loss"), ("chr5", "gain")} <= regions.get(s, set())]
+        require(not missing, f"run_i6_subclusters: no chr2 loss / chr5 gain region "
+                f"in the {prefix} report for {missing[:5]}")
     emit(phase="run_i6_subclusters", card=smi, cells=C, genes=G, launches=n,
          make_object_s=make_s, wall_s=wall, step_seconds=res.timer.records,
-         called=calls)
+         called=calls, bayes=bayes_summary(res))
     del res
 
     # ---- run_i6_leiden: the default Leiden partition, one 32,768-cell ----
@@ -793,7 +936,7 @@ def run_phases(dev, smi, out_root: Path) -> dict:
     with Step15Log(capture=True, record=False) as step15:
         res, wall, n = drive_run(obj, out_root / "run_i6_leiden", dev, HMM=True,
                                  HMM_type="i6", analysis_mode="subclusters",
-                                 cluster_by_groups=False)
+                                 cluster_by_groups=False, BayesMaxPNormal=0.5)
     engine_residual = step15.inputs[0].expr   # the engine's step-14 residual
     launches["run_i6_leiden"] = n
     for k in ("residual_fused", "viterbi", "smooth_banded", "row_median"):
@@ -837,7 +980,7 @@ def run_phases(dev, smi, out_root: Path) -> dict:
          rows_from=partition.ROWS_FROM,
          max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
          called=calls, side_purity_met=sides_met, planted_calls_met=calls_met,
-         vst_features=vst_counts)
+         vst_features=vst_counts, bayes=bayes_summary(res))
     del res
 
     # ---- run_op_by_op: steps 4-14 op by op against the engine's -------
@@ -862,9 +1005,11 @@ def run_phases(dev, smi, out_root: Path) -> dict:
     # ---- run_i3_coords_cells: i3, coordinates smoothing, cells mode -----
     hgo = human_like_genome(8448)
     obj, make_s = make_run_object(hgo, RUN_OBS, RUN_REF)
+    # BayesMaxPNormal=0: the i3 filter differs from the i6 one only in mu
+    # and tau (host code the tests hold to the reference)
     res, wall, n = drive_run(obj, out_root / "run_i3_coords_cells", dev, HMM=True,
                              HMM_type="i3", smooth_method="coordinates",
-                             analysis_mode="cells")
+                             analysis_mode="cells", BayesMaxPNormal=0)
     launches["run_i3_coords_cells"] = n
     for k in ("smooth_general", "row_median", "viterbi"):
         require(n[k] > 0, f"{k} was not launched by run_i3_coords_cells")
@@ -889,10 +1034,13 @@ def run_phases(dev, smi, out_root: Path) -> dict:
          called=calls, neutral_above_0_9=neutral_met)
     del obj, res
 
-    # ---- run_reference: 1,024 cells, the card against the CPU -----------
+    # ---- run_reference: 1,024 cells, the card against the CPU, at the ----
+    # reference's defaults BayesMaxPNormal=0.5 and save_rds=True; then a
+    # second card run() into the card's out_dir resumes
     obj, _ = make_run_object(go, RUN_CHECK_OBS, RUN_CHECK_REF)
     kw = dict(HMM=True, HMM_type="i6", analysis_mode="subclusters",
-              tumor_subcluster_partition_method="qnorm", **RUN_KW)
+              tumor_subcluster_partition_method="qnorm", denoise=True,
+              no_plot=True, BayesMaxPNormal=0.5, save_rds=True)
     dirs = {d: out_root / f"run_reference_{d}" for d in ("card", "cpu")}
     rg = run_pipeline(obj, out_dir=str(dirs["card"]), device=dev, **kw)
     rc = run_pipeline(obj, out_dir=str(dirs["cpu"]), device="cpu", **kw)
@@ -900,22 +1048,68 @@ def run_phases(dev, smi, out_root: Path) -> dict:
     ok, err, flips = denoised_agree(eg, ec)
     require(ok, f"run_reference: card and CPU final expr differ (max {err} "
             f"away from the denoise band's edge)")
-    same = bool(np.array_equal(rg.hmm_states, rc.hmm_states))
-    require(same, "run_reference: card and CPU HMM states differ")
-    reports = sorted(p.name for p in dirs["cpu"].glob("17_HMM_pred*"))
+    reports = sorted(p.name for p in dirs["cpu"].glob("17_HMM_pred*")
+                     if p.suffix != ".npz")
     equal = [f for f in reports if filecmp.cmp(dirs["card"] / f, dirs["cpu"] / f,
                                                 shallow=False)]
     require(len(reports) == 4 and equal == reports,
             f"run_reference: region reports differ: {sorted(set(reports) - set(equal))}")
+    # step 18: the same modelled regions (before any removal), posteriors
+    # within 0.05 (two generators: Philox on the card, mt19937 on the CPU)
+    bg, bc = rg.bayes_result, rc.bayes_result
+    require(bg is not None and bc is not None and bg.cnv_region_names
+            and bg.cnv_region_names == bc.cnv_region_names,
+            "run_reference: the card and the CPU modelled different regions")
+    pg, pc = bg.cnv_state_probabilities, bc.cnv_state_probabilities
+    prob_err = float(np.abs(pg - pc).max())
+    require(prob_err <= 0.05, f"run_reference: state probabilities differ by {prob_err}")
+    # the filtered states equal outside the regions whose P(normal) lies
+    # within 0.1 of the threshold in either run (two honest samplers may
+    # decide those differently)
+    near = np.zeros(rc.hmm_states.shape, bool)
+    n_near = 0
+    for ri, r in enumerate(bc.regions):
+        if min(abs(pg[2, ri] - 0.5), abs(pc[2, ri] - 0.5)) <= 0.1:
+            near[np.ix_(r["cell_idx"], r["gene_idx"])] = True
+            n_near += 1
+    differ = rg.hmm_states != rc.hmm_states
+    require(not (differ & ~near).any(), "run_reference: card and CPU filtered "
+            f"states differ outside the {n_near} region(s) near P(normal) = 0.5")
+    # checkpoints: the same files; the final RDS read back
+    ckpts = sorted(p.name for p in dirs["cpu"].glob("*.npz"))
+    require(ckpts == sorted(p.name for p in dirs["card"].glob("*.npz"))
+            and "run.final.infercnv_obj.npz" in ckpts,
+            f"run_reference: checkpoint files differ: {ckpts}")
+    back = read_rds_infercnv(str(dirs["card"] / "run.final.infercnv_obj"))
+    rds_err = float(np.abs(back.expr - eg).max())
+    require(back.expr.shape == eg.shape and rds_err <= 2e-5,
+            f"run_reference: run.final.infercnv_obj reads back {rds_err} away")
+    # resume: no step 4-14, 17 or 18 again, the same results
+    t0 = time.perf_counter()
+    rr = run_pipeline(obj, out_dir=str(dirs["card"]), device=dev, **kw)
+    resume_s = time.perf_counter() - t0
+    steps = [r["step"] for r in rr.timer.records]
+    require(not {"17_hmm", "18_bayes", "04-14_engine_transform"} & set(steps),
+            f"run_reference: the resumed run recomputed steps: {steps}")
+    require(bool(np.array_equal(rr.hmm_states, rg.hmm_states))
+            and bool(np.array_equal(rr.infercnv_obj.expr, eg)),
+            "run_reference: the resumed run's states or expr differ")
     emit(phase="run_reference", cells=int(eg.shape[0]), expr_max_abs_err=err,
-         denoise_edge_flips=flips, states_equal=same, reports_byte_equal=equal)
+         denoise_edge_flips=flips, reports_byte_equal=equal,
+         regions_modelled=len(bg.cnv_region_names), state_prob_max_abs_err=prob_err,
+         regions_near_threshold=n_near, filtered_states_equal=not differ.any(),
+         removed={"card": len(bg.removed_regions), "cpu": len(bc.removed_regions)},
+         checkpoints=ckpts, rds_max_abs_err=rds_err, resumed_steps=steps,
+         resume_s=resume_s, bayes_card=bayes_summary(rg))
+    del rg, rc, rr
 
     # ---- run_subcluster_reference: Leiden per chromosome, and the -------
     # op-by-op options with random_trees, the card against the CPU
     t0 = time.perf_counter()
     a = card_against_cpu(obj, out_root, "run_subcluster_reference_a", dev,
                          HMM=True, HMM_type="i6", analysis_mode="subclusters",
-                         cluster_by_groups=True, per_chr_hmm_subclusters=True)
+                         cluster_by_groups=True, per_chr_hmm_subclusters=True,
+                         BayesMaxPNormal=0)
     a_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     b = card_against_cpu(obj, out_root, "run_subcluster_reference_b", dev,
@@ -924,7 +1118,7 @@ def run_phases(dev, smi, out_root: Path) -> dict:
                          tumor_subcluster_partition_method="random_trees",
                          max_centered_threshold="auto",
                          remove_genes_at_chr_ends=True, prune_outliers=True,
-                         mask_nonDE_genes=True)
+                         mask_nonDE_genes=True, BayesMaxPNormal=0)
     b_s = time.perf_counter() - t0
     emit(phase="run_subcluster_reference", leiden_per_chr=dict(a, seconds=a_s),
          op_by_op_random_trees=dict(b, seconds=b_s))
@@ -1748,6 +1942,7 @@ def run(dev) -> int:
     # ---- run(): the pipeline around the engine ---------------------------
     del inp, cin, win, be, counts_a, counts_b, ref_counts
     torch.cuda.empty_cache()
+    bayes_sampler(dev, smi)
     runs_dir = ROOT / "build" / "chip_smoke_runs"
     shutil.rmtree(runs_dir, ignore_errors=True)
     run_launches = run_phases(dev, smi, runs_dir)

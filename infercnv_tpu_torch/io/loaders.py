@@ -1,9 +1,9 @@
 """File ingestion: counts matrices, gene-order files, annotation files.
 
 Copied from infercnv_tpu/io/loaders.py (numpy, with h5py and scipy imported
-inside the readers that need them).  Not ported yet: ``.rds`` counts and
-``load_r_golden_example``, which need the R serialisation reader
-(infercnv_tpu/io/rds.py, ROADMAP A7); they raise NotImplementedError.
+inside the readers that need them; ``.rds`` counts and the reference's
+``.rda`` example through the port's copy of the R serialisation reader,
+io/rds.py).
 
 Analogue of the input-parsing half of ``CreateInfercnvObject``
 (reference R/inferCNV.R:146-198): tab-separated counts (optionally gzipped),
@@ -33,8 +33,8 @@ def _open(path: str):
 def read_counts_matrix(path: str, sep: str = "\t") -> Tuple[np.ndarray, List[str], List[str]]:
     """Read a genes x cells counts table. Returns (matrix [G, C], gene_names, cell_names).
 
-    Accepts tab/comma-separated text (optionally gzipped), ``.h5ad`` and
-    ``.h5``; an ``.rds`` file raises NotImplementedError (ROADMAP A7)."""
+    Accepts tab/comma-separated text (optionally gzipped), ``.rds``,
+    ``.h5ad`` and ``.h5``."""
     log_info(f"Reading counts matrix: {path}")
     if path.endswith(".rds") or path.endswith(".RDS"):
         return _read_counts_rds(path)
@@ -68,11 +68,27 @@ def read_counts_matrix(path: str, sep: str = "\t") -> Tuple[np.ndarray, List[str
 
 
 def _read_counts_rds(path: str) -> Tuple[np.ndarray, List[str], List[str]]:
-    """An .rds counts matrix needs the R serialisation reader, which the
-    port does not have yet."""
-    raise NotImplementedError(
-        f"reading .rds counts ({path}) is not ported yet: it needs "
-        "io/rds.py (ROADMAP A7)")
+    """Read an .rds counts matrix (dense R matrix, data.frame, or dgCMatrix)
+    (infercnv_tpu/io/loaders.py:65-85)."""
+    from infercnv_tpu_torch.io.rds import (
+        RObj, r_data_frame, r_dgc_matrix, r_matrix, read_rds,
+    )
+
+    obj = read_rds(path)
+    if isinstance(obj, RObj) and obj.rclass and "dgCMatrix" in obj.rclass:
+        sp_mat, rows, cols = r_dgc_matrix(obj)
+        return np.asarray(sp_mat.toarray(), np.float64), rows, cols
+    if isinstance(obj, RObj) and obj.rclass and "data.frame" in obj.rclass:
+        df = r_data_frame(obj)
+        rows = df.pop("__rownames__")
+        cols = list(df)
+        mat = np.column_stack([np.asarray(df[c], np.float64) for c in cols])
+        return mat, rows, cols
+    if isinstance(obj, RObj) and "dim" in obj.attrs:
+        mat, rows, cols = r_matrix(obj)
+        return np.asarray(mat, np.float64), rows, cols
+    raise ValueError(f"unsupported .rds payload in {path}: expected matrix, "
+                     "data.frame, or dgCMatrix")
 
 
 def _h5_string_array(ds) -> List[str]:
@@ -257,12 +273,47 @@ def load_infercnv_object(
     )
 
 
+def _rda_example_tables(base: str):
+    """Parse the reference's packaged example .rda datasets
+    (reference R/data.R:1-22: infercnv_data_example 8252x20,
+    infercnv_annots_example, infercnv_genes_example;
+    infercnv_tpu/io/loaders.py:270-296)."""
+    from infercnv_tpu_torch.io.rds import r_data_frame, read_rda
+
+    d = os.path.join(base, "data")
+    ddf = r_data_frame(read_rda(os.path.join(d, "infercnv_data_example.rda"))["infercnv_data_example"])
+    genes = ddf.pop("__rownames__")
+    cells = list(ddf)
+    mat = np.column_stack([np.asarray(ddf[c], np.float64) for c in cells])  # [G, C]
+    adf = r_data_frame(read_rda(os.path.join(d, "infercnv_annots_example.rda"))["infercnv_annots_example"])
+    ann_col = [c for c in adf if c != "__rownames__"][0]
+    ann = dict(zip(adf["__rownames__"], [str(v) for v in adf[ann_col]]))
+    gdf = r_data_frame(read_rda(os.path.join(d, "infercnv_genes_example.rda"))["infercnv_genes_example"])
+    cols = [c for c in gdf if c != "__rownames__"]
+    chrs = [str(c) for c in gdf[cols[0]]]
+    starts = np.asarray(gdf[cols[1]])
+    stops = np.asarray(gdf[cols[2]])
+    table = {g: (c, int(s), int(e)) for g, c, s, e in zip(gdf["__rownames__"], chrs, starts, stops)}
+    chr_order: List[str] = []
+    seen = set()
+    for c in chrs:
+        if c not in seen:
+            seen.add(c)
+            chr_order.append(c)
+    return mat, genes, cells, ann, table, chr_order
+
+
 def load_r_golden_example(ref_group_names: Sequence[str] = ("normal",)) -> InferCNV:
-    """The reference's packaged example .rda datasets need the R
-    serialisation reader, which the port does not have yet."""
-    raise NotImplementedError(
-        "load_r_golden_example is not ported yet: it reads .rda files "
-        "through io/rds.py (ROADMAP A7)")
+    """Build an InferCNV object from the reference's packaged example data —
+    the Python analogue of R's ``data(infercnv_data_example); ...;
+    CreateInfercnvObject(...)`` (reference R/inferCNV_ops.R:223-230)."""
+    base = os.environ.get("INFERCNV_REFERENCE_DIR", "/root/reference")
+    mat, genes, cells, ann, table, chr_order = _rda_example_tables(base)
+    return create_infercnv_object(
+        counts_matrix=mat, gene_names=genes, cell_names=cells,
+        annotations=ann, gene_order_table=table, chr_file_order=chr_order,
+        ref_group_names=list(ref_group_names),
+    )
 
 
 def load_bundled_example() -> InferCNV:

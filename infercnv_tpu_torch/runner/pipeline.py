@@ -19,8 +19,16 @@ lines 33-1121):
   * step 17: the i6 or i3 HMM on groups, subclusters (or, for i6 with
     per-chromosome Leiden subclusters, per chromosome) or cells, with the
     region reports;
+  * steps 18-19: the Bayesian filter (the region log-likelihood and the
+    Gibbs sampler on the device, models/bayes.py) and the filtered
+    ``Pnorm_*`` region reports;
   * step 20: the lazy proxy values; step 21: the non-DE gene mask;
-    step 22: denoise; step 23: return.
+    step 22: denoise; step 23: the final object (``.npz`` and RDS).
+
+With ``save_rds`` each step writes its checkpoint (runner/checkpoint.py;
+on the engine path only step 14 of steps 4-14, as the reference does), and
+a second run() into the same out_dir resumes from the newest checkpoint
+whose arguments match (the scan of :480-537).
 
 The object stays numpy on the host, as the reference keeps it; rows move to
 the device only inside the steps that compute there.  Host statistics (the
@@ -31,8 +39,8 @@ version; ``device=None`` runs on CUDA and raises without it.
 
 Options whose modules are not ported yet are refused before any work with a
 NotImplementedError naming the ROADMAP item (``_refuse_unported``): the
-checkpoints and RDS output, the plots and the Bayesian filter (A7), the
-device mesh (A8) and the splatter simulation (A9).
+plots, and with them the MCMC diagnostics (A7), the device mesh (A8) and
+the splatter simulation (A9).
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ import torch
 
 from infercnv_tpu_torch.core.object import InferCNV
 from infercnv_tpu_torch.device import DeviceLike, resolve_device
+from infercnv_tpu_torch.models import bayes as bayes_mod
 from infercnv_tpu_torch.models import hmm as hmm_mod
 from infercnv_tpu_torch.models.hspike import build_hspike
 from infercnv_tpu_torch.ops import transforms as T
@@ -54,6 +63,7 @@ from infercnv_tpu_torch.ops.smoothing import (
     smooth_by_chromosome_coordinates,
 )
 from infercnv_tpu_torch.report.regions import generate_cnv_region_reports
+from infercnv_tpu_torch.runner import checkpoint as ckpt
 from infercnv_tpu_torch.runner.config import RunConfig
 from infercnv_tpu_torch.subcluster.partition import (
     PHASE_TIMES,
@@ -79,6 +89,7 @@ class RunResult:
         self._hmm_proxy_values: Optional[np.ndarray] = None
         self.hmm_gene_order = None
         self.subclusters_per_chr = None
+        self.bayes_result = None
         self.region_reports = None
         self.timer = None
 
@@ -114,10 +125,28 @@ def _host(a) -> np.ndarray:
     return np.asarray(a)
 
 
-def _engine_fast_ok(cfg: RunConfig) -> bool:
+def _has_multiple_states(states) -> bool:
+    """True when more than one distinct state value exists, checked on the
+    factorized rows or row chunks with early exit (reference :80-89)."""
+    src = np.asarray(getattr(states, "rows", states))
+    first = src.flat[0]
+    for b in range(0, src.shape[0], 1024):
+        if (src[b:b + 1024] != first).any():
+            return True
+    return False
+
+
+def _states_matrix(states) -> Optional[np.ndarray]:
+    """Expand factorized GroupedStates to [C, G] (no-op on a matrix)."""
+    if states is not None and hasattr(states, "materialize"):
+        return states.materialize()
+    return states
+
+
+def _engine_fast_ok(cfg: RunConfig, skip_past: int) -> bool:
     """True when steps 4-14 can run as one engine pass per cell chunk
-    (copied from the reference, :138-166; the port has no resume, so no
-    step is ever skipped)."""
+    (copied from the reference, :138-166): not when a resume skips past
+    step 0."""
     if cfg.use_engine is False:
         return False
     ok = (not cfg.scale_data
@@ -130,7 +159,8 @@ def _engine_fast_ok(cfg: RunConfig) -> bool:
           and isinstance(cfg.max_centered_threshold, (int, float))
           and not isinstance(cfg.max_centered_threshold, bool)
           and not cfg.plot_steps
-          and cfg.up_to_step >= 15)
+          and cfg.up_to_step >= 15
+          and skip_past == 0)
     if cfg.use_engine is True and not ok:
         raise ValueError(
             "use_engine=True but the configuration requires op-by-op steps "
@@ -147,14 +177,12 @@ def _refuse_unported(cfg: RunConfig) -> None:
         raise NotImplementedError(
             f"{option} is not ported yet: {what} (ROADMAP {item})")
 
-    if cfg.save_rds:
-        refuse("save_rds=True (and with it save_final_rds)", "A7",
-               "checkpoints and RDS output; pass save_rds=False")
     if not cfg.no_plot:
         refuse("no_plot=False", "A7", "the heatmaps; pass no_plot=True")
-    if cfg.HMM and cfg.BayesMaxPNormal > 0:
-        refuse("BayesMaxPNormal > 0 with HMM", "A7",
-               "the Bayesian filter; pass BayesMaxPNormal=0")
+    if cfg.HMM and cfg.diagnostics:
+        # the reference draws the MCMC diagnostic plots even under no_plot
+        refuse("diagnostics=True with HMM", "A7",
+               "the MCMC diagnostic plots; pass diagnostics=False")
     if cfg.plot_steps:
         refuse("plot_steps=True", "A7", "the per-step heatmaps")
     if cfg.n_devices or cfg.mesh is not None:
@@ -492,9 +520,9 @@ def _clear_noise(obj: InferCNV, cfg: RunConfig) -> None:
 
 def run(obj: InferCNV, out_dir: Optional[str] = None,
         device: DeviceLike = None, **kwargs) -> RunResult:
-    """Run the pipeline on the engine path.  kwargs mirror the reference
-    run() arguments (see RunConfig); options not ported yet raise
-    NotImplementedError before any work.  Returns a RunResult."""
+    """Run the pipeline.  kwargs mirror the reference run() arguments (see
+    RunConfig); options not ported yet raise NotImplementedError before any
+    work.  Returns a RunResult."""
     cfg = RunConfig(out_dir=out_dir, **kwargs)
     cfg.validate()
     _refuse_unported(cfg)
@@ -511,6 +539,62 @@ def run(obj: InferCNV, out_dir: Optional[str] = None,
     timer = StepTimer(cfg.out_dir)
     result.timer = timer
 
+    resume_token = f".HMM{cfg.HMM_type}" if cfg.HMM else ""
+    hmm_resume_token = f"{resume_token}.hmm_mode-{cfg.analysis_mode}"
+    cum_args = ckpt.relevant_args_by_step(cfg)
+
+    # resume scan (reference :480-537)
+    skip_past = 0
+    resume_step = 0
+    resume_states: Optional[np.ndarray] = None
+    if cfg.resume_mode and cfg.save_rds:
+        orig_obj = obj
+        md5 = obj.options.get("counts_md5")
+        step, restored, _states = ckpt.scan_resume(cfg.out_dir, cfg, resume_token, md5)
+        if (15 <= step <= 16 and cfg.HMM
+                and cfg.per_chr_hmm_subclusters
+                and cfg.tumor_subcluster_partition_method == "leiden"):
+            # the per-chromosome partitions step 17 needs are not
+            # checkpointed: resume from step 14 and recompute step 15
+            log_warn("resume: per_chr_hmm_subclusters needs step 15 to "
+                     "re-run; resuming from step 14 instead")
+            step, restored, _states = ckpt.scan_resume(
+                cfg.out_dir, cfg, resume_token, md5, max_step=14)
+        if step > 0:
+            obj = restored
+            resume_step = step
+            # steps 17-20 checkpoint the HMM chain on the post-step-16
+            # matrix, so the expr chain resumes at 16; steps >= 21 carry
+            # post-HMM expr edits and resume in place
+            skip_past = 16 if 17 <= step <= 20 else step
+            if step >= 17:
+                if _states is not None:
+                    resume_states = np.asarray(_states)
+                else:
+                    # a 21/22 checkpoint: the HMM states live in the
+                    # step-19 (post-Bayes) or step-17 (raw) files
+                    _hstep, hstates = ckpt.scan_hmm_states(
+                        cfg.out_dir, cfg, resume_token, md5)
+                    if hstates is not None:
+                        resume_states = hstates
+            if cfg.HMM and resume_states is None and resume_step >= 21:
+                # the state files are gone and the Viterbi needs the
+                # post-16 matrix: resume only up to 16
+                log_warn("resume: HMM state checkpoints missing; recomputing HMM chain")
+                obj = orig_obj
+                resume_step = 0
+                skip_past = 0
+                step2, restored2, _ = ckpt.scan_resume(
+                    cfg.out_dir, cfg, resume_token, md5, max_step=16)
+                if step2 > 0:
+                    obj = restored2
+                    skip_past = step2
+
+    def save(step: int, states: Optional[np.ndarray] = None) -> None:
+        if cfg.save_rds and skip_past < step:
+            path = os.path.join(cfg.out_dir, ckpt.step_filename(step, resume_token))
+            ckpt.save_step(obj, path, cum_args[step - 1], states)
+
     def done(step: int) -> bool:
         if cfg.up_to_step == step:
             result.infercnv_obj = obj
@@ -519,203 +603,238 @@ def run(obj: InferCNV, out_dir: Optional[str] = None,
 
     # STEP 1: incoming data
     log_info("STEP 1: incoming data")
+    save(1)
     if done(1):
         return result
 
     # STEP 2: gene filters (both per-gene-local: one removal, :568-591)
-    log_info("STEP 02: Removing lowly expressed genes")
-    with timer.step("02_gene_filter"):
-        drop1 = T.below_min_mean_expr_cutoff(obj.expr, cfg.cutoff)
-        if drop1.size:
-            log_info(f"Removing {drop1.size} genes below mean expr threshold {cfg.cutoff}")
-        drop2 = T.genes_below_min_cells_ref(obj.expr, cfg.min_cells_per_gene)
-        drop2 = np.setdiff1d(drop2, drop1)
-        if drop1.size + drop2.size == obj.num_genes:
-            raise RuntimeError("All genes removed! Must revisit your data, cannot continue")
-        if drop2.size:
-            log_info(f"Removed {drop2.size} genes with fewer than {cfg.min_cells_per_gene} cells expressing")
-        drop = np.union1d(drop1, drop2)
-        if drop.size:
-            obj.remove_genes(drop)
+    if skip_past < 2:
+        log_info("STEP 02: Removing lowly expressed genes")
+        with timer.step("02_gene_filter"):
+            drop1 = T.below_min_mean_expr_cutoff(obj.expr, cfg.cutoff)
+            if drop1.size:
+                log_info(f"Removing {drop1.size} genes below mean expr threshold {cfg.cutoff}")
+            drop2 = T.genes_below_min_cells_ref(obj.expr, cfg.min_cells_per_gene)
+            drop2 = np.setdiff1d(drop2, drop1)
+            if drop1.size + drop2.size == obj.num_genes:
+                raise RuntimeError("All genes removed! Must revisit your data, cannot continue")
+            if drop2.size:
+                log_info(f"Removed {drop2.size} genes with fewer than {cfg.min_cells_per_gene} cells expressing")
+            drop = np.union1d(drop1, drop2)
+            if drop.size:
+                obj.remove_genes(drop)
+        save(2)
     if done(2):
         return result
 
     # STEP 3: depth normalization (+ hspike build).  On the engine path
-    # (no sim_foreground) the counts stay raw on the host, the hspike
-    # statistics normalise on the fly and the engine normalises on the
-    # device (:593-626)
-    raw_engine = _engine_fast_ok(cfg) and not cfg.sim_foreground
-    log_info("STEP 03: normalization by sequencing depth")
-    with timer.step("03_normalize+hspike"):
-        norm_factor = None
-        if raw_engine:
-            norm_factor = float(np.median(
-                np.asarray(obj.expr).sum(axis=1, dtype=np.float64)))
-            log_info("-engine fast path: counts stay raw on host "
-                     f"(device normalization, factor {norm_factor:g})")
-        else:
-            obj.expr = np.asarray(T.normalize_counts_by_seq_depth(obj.expr))
-        if cfg.HMM and cfg.HMM_type == "i6":
-            obj.hspike = build_hspike(obj, sim_method=cfg.sim_method,
-                                      aggregate_normals=cfg.hspike_aggregate_normals,
-                                      seed=cfg.seed,
-                                      common_dispersion=cfg.hspike_common_dispersion,
-                                      normalize_factor=norm_factor)
-        if cfg.sim_foreground:
-            # developer/debug option (reference inferCNV_ops.R:592-593)
-            from infercnv_tpu_torch.models.hspike import sim_foreground
+    # with no checkpoints (no sim_foreground) the counts stay raw on the
+    # host, the hspike statistics normalise on the fly and the engine
+    # normalises on the device (:593-626)
+    raw_engine = (_engine_fast_ok(cfg, skip_past) and not cfg.save_rds
+                  and not cfg.sim_foreground)
+    if skip_past < 3:
+        log_info("STEP 03: normalization by sequencing depth")
+        with timer.step("03_normalize+hspike"):
+            norm_factor = None
+            if raw_engine:
+                norm_factor = float(np.median(
+                    np.asarray(obj.expr).sum(axis=1, dtype=np.float64)))
+                log_info("-engine fast path: counts stay raw on host "
+                         f"(device normalization, factor {norm_factor:g})")
+            else:
+                obj.expr = np.asarray(T.normalize_counts_by_seq_depth(obj.expr))
+            if cfg.HMM and cfg.HMM_type == "i6":
+                obj.hspike = build_hspike(obj, sim_method=cfg.sim_method,
+                                          aggregate_normals=cfg.hspike_aggregate_normals,
+                                          seed=cfg.seed,
+                                          common_dispersion=cfg.hspike_common_dispersion,
+                                          normalize_factor=norm_factor)
+            if cfg.sim_foreground:
+                # developer/debug option (reference inferCNV_ops.R:592-593)
+                from infercnv_tpu_torch.models.hspike import sim_foreground
 
-            sim_foreground(obj, sim_method=cfg.sim_method, seed=cfg.seed)
+                sim_foreground(obj, sim_method=cfg.sim_method, seed=cfg.seed)
+        save(3)
     if done(3):
         return result
 
-    # STEPS 4-14 on the engine's fast path: one engine pass per cell chunk
+    # STEPS 4-14 on the engine's fast path: one engine pass per cell chunk;
+    # with save_rds only the step-14 checkpoint is written (:629-643)
     device_chunks = None
-    if _engine_fast_ok(cfg):
+    if _engine_fast_ok(cfg, skip_past) and skip_past < 14:
         device_chunks = _run_engine_residual(obj, cfg, timer, dev)
-        if (not cfg.save_final_rds and obj.counts is not None
+        if (not cfg.save_rds and not cfg.save_final_rds
+                and obj.counts is not None
                 and getattr(obj.counts, "nbytes", 0) > 4_000_000_000):
             # no RDS outputs will ever read the raw counts again
             log_info("-releasing raw counts matrix "
                      f"({obj.counts.nbytes/1e9:.1f} GB; no RDS outputs requested)")
             obj.counts = None
-    else:
-        # STEPS 4-14 op by op (reference :645-757): each op on the device,
-        # its result back on the host, mirrored onto the hspike
+        save(14)  # while skip_past is still < 14
+        skip_past = max(skip_past, 14)
+
+    # STEPS 4-14 op by op (reference :645-757): each op on the device, its
+    # result back on the host, mirrored onto the hspike
+    if skip_past < 4:
         log_info("STEP 04: log transformation of data")
         with timer.step("04_log"):
             _mirrored(obj, T.log2xplus1, dev)
-        if done(4):
-            return result
+        save(4)
+    if done(4):
+        return result
 
-        if cfg.scale_data:
-            log_info("STEP 05: scaling all expression data")
-            with timer.step("05_scale"):
-                _mirrored(obj, T.scale_infercnv_expr, dev)
-        if done(5):
-            return result
+    if cfg.scale_data and skip_past < 5:
+        log_info("STEP 05: scaling all expression data")
+        with timer.step("05_scale"):
+            _mirrored(obj, T.scale_infercnv_expr, dev)
+        save(5)
+    if done(5):
+        return result
 
-        if cfg.num_ref_groups is not None:
-            if not obj.has_reference_cells():
-                raise ValueError("no reference cells defined; cannot split into groups")
-            log_info(f"STEP 06: splitting reference data into {cfg.num_ref_groups} clusters")
-            with timer.step("06_split_references"):
-                split_references(obj, cfg.num_ref_groups, "complete", device=dev)
-        if done(6):
-            return result
+    if cfg.num_ref_groups is not None and skip_past < 6:
+        if not obj.has_reference_cells():
+            raise ValueError("no reference cells defined; cannot split into groups")
+        log_info(f"STEP 06: splitting reference data into {cfg.num_ref_groups} clusters")
+        with timer.step("06_split_references"):
+            split_references(obj, cfg.num_ref_groups, "complete", device=dev)
+        save(6)
+    if done(6):
+        return result
 
-        # random_trees subclustering happens pre-residual (reference :674-686)
-        if (cfg.analysis_mode == "subclusters"
-                and cfg.tumor_subcluster_partition_method == "random_trees"):
-            log_info("STEP 07: computing tumor subclusters via random_trees")
-            with timer.step("07_random_trees"):
-                define_tumor_subclusters(
-                    obj, p_val=cfg.tumor_subcluster_pval,
-                    hclust_method=cfg.hclust_method,
-                    cluster_by_groups=cfg.cluster_by_groups,
-                    partition_method="random_trees",
-                    z_score_filter=cfg.z_score_filter, seed=cfg.seed,
-                    device=dev)
-        if done(7):
-            return result
-
-        log_info("STEP 08: removing average of reference data (before smoothing)")
-        with timer.step("08_subtract_ref"):
-            _subtract_ref(obj, False, cfg.ref_subtract_use_mean_bounds, dev)
-        if done(8):
-            return result
-
-        if cfg.max_centered_threshold is not None:
-            with timer.step("09_threshold"):
-                threshold = cfg.max_centered_threshold
-                if isinstance(threshold, str) and threshold == "auto":
-                    lo, hi = T.get_average_bounds(obj.expr, device=dev)
-                    threshold = float(np.mean(np.abs([float(lo), float(hi)])))
-                    log_info(f"Setting max centered thresholds via auto to: +- {threshold:g}")
-                log_info(f"STEP 09: apply max centered expression threshold: {threshold}")
-                _mirrored(obj, T.apply_max_threshold_bounds, dev, float(threshold))
-        if done(9):
-            return result
-
-        log_info(f"STEP 10: Smoothing data per cell by chromosome ({cfg.smooth_method})")
-        with timer.step("10_smooth"):
-            _smooth(obj, cfg, dev)
-        if done(10):
-            return result
-
-        log_info("STEP 11: re-centering data across chromosome after smoothing")
-        with timer.step("11_center"):
-            _mirrored(obj, T.center_cells, dev, "median")
-        if done(11):
-            return result
-
-        log_info("STEP 12: removing average of reference data (after smoothing)")
-        with timer.step("12_subtract_ref"):
-            _subtract_ref(obj, False, cfg.ref_subtract_use_mean_bounds, dev)
-        if done(12):
-            return result
-
-        if cfg.remove_genes_at_chr_ends and cfg.smooth_method != "coordinates":
-            log_info("STEP 13: removing genes at chr ends")
-            with timer.step("13_chr_ends"):
-                _remove_genes_at_chr_ends(obj, cfg.window_length)
-        if done(13):
-            return result
-
-        log_info("STEP 14: invert log2(FC) to FC")
-        with timer.step("14_invert_log"):
-            _mirrored(obj, T.invert_log2, dev)
-        if done(14):
-            return result
-
-    # STEP 15: subclustering (leiden by default) / plain clustering;
-    # random_trees partitioned at step 7
+    # random_trees subclustering happens pre-residual (reference :674-686)
     if (cfg.analysis_mode == "subclusters"
-            and cfg.tumor_subcluster_partition_method != "random_trees"):
-        log_info(f"STEP 15: computing tumor subclusters via {cfg.tumor_subcluster_partition_method}")
-        with timer.step("15_subclusters"):
-            result.subclusters_per_chr = define_tumor_subclusters(
-                obj,
-                device_chunks=device_chunks,
-                p_val=cfg.tumor_subcluster_pval,
-                k_nn=cfg.k_nn,
-                leiden_method=cfg.leiden_method,
-                leiden_function=cfg.leiden_function,
-                leiden_resolution=cfg.leiden_resolution,
-                leiden_method_per_chr=cfg.leiden_method_per_chr,
-                leiden_function_per_chr=cfg.leiden_function_per_chr,
-                leiden_resolution_per_chr=cfg.leiden_resolution_per_chr,
-                hclust_method=cfg.hclust_method,
-                cluster_by_groups=cfg.cluster_by_groups,
-                partition_method=cfg.tumor_subcluster_partition_method,
-                per_chr_hmm_subclusters=cfg.per_chr_hmm_subclusters,
-                per_chr_hmm_subclusters_references=cfg.per_chr_hmm_subclusters_references,
-                z_score_filter=cfg.z_score_filter,
-                seed=cfg.seed,
-                # f16-transferred residuals carry f16-quantized values, so
-                # moving PCA rows as f16 is lossless and halves the copy
-                pca_upload_dtype=(np.float16
-                                  if cfg.engine_transfer_dtype == "float16"
-                                  else None),
-                device=dev)
-            device_chunks = None  # free the residual kept on the device
-        for ph, sec in sorted(PHASE_TIMES.items(), key=lambda kv: -kv[1]):
-            timer.records.append({"step": f"15_subclusters.{ph}",
-                                  "seconds": round(sec, 4)})
-    elif cfg.analysis_mode != "subclusters":
-        log_info("STEP 15: Clustering samples (not defining tumor subclusters)")
-        with timer.step("15_clustering"):
+            and cfg.tumor_subcluster_partition_method == "random_trees"
+            and skip_past < 7):
+        log_info("STEP 07: computing tumor subclusters via random_trees")
+        with timer.step("07_random_trees"):
             define_tumor_subclusters(
                 obj, p_val=cfg.tumor_subcluster_pval,
                 hclust_method=cfg.hclust_method,
-                cluster_by_groups=cfg.cluster_by_groups, partition_method="none",
-                z_score_filter=cfg.z_score_filter, seed=cfg.seed, device=dev)
+                cluster_by_groups=cfg.cluster_by_groups,
+                partition_method="random_trees",
+                z_score_filter=cfg.z_score_filter, seed=cfg.seed,
+                device=dev)
+        save(7)
+    if done(7):
+        return result
+
+    if skip_past < 8:
+        log_info("STEP 08: removing average of reference data (before smoothing)")
+        with timer.step("08_subtract_ref"):
+            _subtract_ref(obj, False, cfg.ref_subtract_use_mean_bounds, dev)
+        save(8)
+    if done(8):
+        return result
+
+    if cfg.max_centered_threshold is not None and skip_past < 9:
+        with timer.step("09_threshold"):
+            threshold = cfg.max_centered_threshold
+            if isinstance(threshold, str) and threshold == "auto":
+                lo, hi = T.get_average_bounds(obj.expr, device=dev)
+                threshold = float(np.mean(np.abs([float(lo), float(hi)])))
+                log_info(f"Setting max centered thresholds via auto to: +- {threshold:g}")
+            log_info(f"STEP 09: apply max centered expression threshold: {threshold}")
+            _mirrored(obj, T.apply_max_threshold_bounds, dev, float(threshold))
+        save(9)
+    if done(9):
+        return result
+
+    if skip_past < 10:
+        log_info(f"STEP 10: Smoothing data per cell by chromosome ({cfg.smooth_method})")
+        with timer.step("10_smooth"):
+            _smooth(obj, cfg, dev)
+        save(10)
+    if done(10):
+        return result
+
+    if skip_past < 11:
+        log_info("STEP 11: re-centering data across chromosome after smoothing")
+        with timer.step("11_center"):
+            _mirrored(obj, T.center_cells, dev, "median")
+        save(11)
+    if done(11):
+        return result
+
+    if skip_past < 12:
+        log_info("STEP 12: removing average of reference data (after smoothing)")
+        with timer.step("12_subtract_ref"):
+            _subtract_ref(obj, False, cfg.ref_subtract_use_mean_bounds, dev)
+        save(12)
+    if done(12):
+        return result
+
+    if (cfg.remove_genes_at_chr_ends and cfg.smooth_method != "coordinates"
+            and skip_past < 13):
+        log_info("STEP 13: removing genes at chr ends")
+        with timer.step("13_chr_ends"):
+            _remove_genes_at_chr_ends(obj, cfg.window_length)
+        save(13)
+    if done(13):
+        return result
+
+    if skip_past < 14:
+        log_info("STEP 14: invert log2(FC) to FC")
+        with timer.step("14_invert_log"):
+            _mirrored(obj, T.invert_log2, dev)
+        save(14)
+    if done(14):
+        return result
+
+    # STEP 15: subclustering (leiden by default) / plain clustering;
+    # random_trees partitioned at step 7
+    if skip_past < 15:
+        if (cfg.analysis_mode == "subclusters"
+                and cfg.tumor_subcluster_partition_method != "random_trees"):
+            log_info(f"STEP 15: computing tumor subclusters via {cfg.tumor_subcluster_partition_method}")
+            with timer.step("15_subclusters"):
+                result.subclusters_per_chr = define_tumor_subclusters(
+                    obj,
+                    device_chunks=device_chunks,
+                    p_val=cfg.tumor_subcluster_pval,
+                    k_nn=cfg.k_nn,
+                    leiden_method=cfg.leiden_method,
+                    leiden_function=cfg.leiden_function,
+                    leiden_resolution=cfg.leiden_resolution,
+                    leiden_method_per_chr=cfg.leiden_method_per_chr,
+                    leiden_function_per_chr=cfg.leiden_function_per_chr,
+                    leiden_resolution_per_chr=cfg.leiden_resolution_per_chr,
+                    hclust_method=cfg.hclust_method,
+                    cluster_by_groups=cfg.cluster_by_groups,
+                    partition_method=cfg.tumor_subcluster_partition_method,
+                    per_chr_hmm_subclusters=cfg.per_chr_hmm_subclusters,
+                    per_chr_hmm_subclusters_references=cfg.per_chr_hmm_subclusters_references,
+                    z_score_filter=cfg.z_score_filter,
+                    seed=cfg.seed,
+                    # f16-transferred residuals carry f16-quantized values, so
+                    # moving PCA rows as f16 is lossless and halves the copy
+                    pca_upload_dtype=(np.float16
+                                      if cfg.engine_transfer_dtype == "float16"
+                                      else None),
+                    device=dev)
+                device_chunks = None  # free the residual kept on the device
+            for ph, sec in sorted(PHASE_TIMES.items(), key=lambda kv: -kv[1]):
+                timer.records.append({"step": f"15_subclusters.{ph}",
+                                      "seconds": round(sec, 4)})
+        elif cfg.analysis_mode != "subclusters":
+            log_info("STEP 15: Clustering samples (not defining tumor subclusters)")
+            with timer.step("15_clustering"):
+                define_tumor_subclusters(
+                    obj, p_val=cfg.tumor_subcluster_pval,
+                    hclust_method=cfg.hclust_method,
+                    cluster_by_groups=cfg.cluster_by_groups, partition_method="none",
+                    z_score_filter=cfg.z_score_filter, seed=cfg.seed, device=dev)
+        save(15)
+        # milestone: the preliminary object (reference :819-822)
+        if cfg.save_rds:
+            ckpt.save_step(obj, os.path.join(cfg.out_dir, "preliminary.infercnv_obj.npz"),
+                           cum_args[14])
     device_chunks = None
     if done(15):
         return result
 
     # STEP 16: optional outlier pruning (reference :851-864)
-    if cfg.prune_outliers:
+    if cfg.prune_outliers and skip_past < 16:
         log_info("STEP 16: Removing outliers")
         with timer.step("16_prune_outliers"):
             for o in (obj, obj.hspike):
@@ -724,14 +843,20 @@ def run(obj: InferCNV, out_dir: Optional[str] = None,
                         o.expr, cfg.outlier_method_bound,
                         cfg.outlier_lower_bound, cfg.outlier_upper_bound,
                         device=dev))
+        save(16)
     if done(16):
         return result
 
     # STEP 17: HMM CNV prediction
     hmm_states = None
-    resume_token = f".HMM{cfg.HMM_type}" if cfg.HMM else ""
-    hmm_resume_token = f"{resume_token}.hmm_mode-{cfg.analysis_mode}"
-    if cfg.HMM:
+    if cfg.HMM and resume_states is not None and resume_step >= 17:
+        # resume the 17->20 chain: step-17 states are the raw Viterbi
+        # calls, step-19 states the post-Bayes filtered ones (:869-875)
+        log_info(f"STEP 17: resuming HMM predictions from step-{resume_step} checkpoint")
+        hmm_states = resume_states
+        result.hmm_states = hmm_states
+        result.hmm_gene_order = obj.gene_order
+    elif cfg.HMM:
         log_info("STEP 17: HMM-based CNV prediction")
         with timer.step("17_hmm"):
             if cfg.HMM_type == "i6":
@@ -783,9 +908,48 @@ def run(obj: InferCNV, out_dir: Optional[str] = None,
                 ignore_neutral_state=neutral,
                 by=cfg.HMM_report_by,
             )
+        if cfg.save_rds and skip_past < 17:
+            save(17, states=_states_matrix(hmm_states))
         result.hmm_states = hmm_states
         result.hmm_gene_order = obj.gene_order
-    if done(17) or done(18) or done(19):
+    if done(17):
+        return result
+
+    # STEPS 18-19: Bayesian mixture model filtering (reference :950-1009)
+    if cfg.HMM and resume_step >= 19 and hmm_states is not None:
+        log_info("STEPS 18-19: resuming post-Bayes filtered states from checkpoint")
+    elif (cfg.HMM and cfg.BayesMaxPNormal > 0 and hmm_states is not None
+            and _has_multiple_states(hmm_states)):
+        log_info("STEP 18: Run Bayesian Network Model on HMM predicted CNVs")
+        with timer.step("18_bayes"):
+            hmm_states, bayes_out = bayes_mod.bayesian_filter_states(
+                obj, hmm_states,
+                hmm_type=cfg.HMM_type,
+                BayesMaxPNormal=cfg.BayesMaxPNormal,
+                hspike=obj.hspike,
+                reassign=cfg.reassignCNVs,
+                out_dir=os.path.join(cfg.out_dir, f"BayesNetOutput{hmm_resume_token}"),
+                report_by=cfg.HMM_report_by,
+                seed=cfg.seed,
+                device=dev,
+            )
+        for part, sec in bayes_out.seconds.items():
+            timer.records.append({"step": f"18_bayes.{part}", "seconds": round(sec, 4)})
+        result.bayes_result = bayes_out
+        result.hmm_states = hmm_states
+        save(19, states=hmm_states)
+        # the filtered reports also replace the in-memory step-17 reports
+        with timer.step("19_region_reports"):
+            result.region_reports = generate_cnv_region_reports(
+                obj, hmm_states,
+                output_filename_prefix=(
+                    f"HMM_CNV_predictions{hmm_resume_token}.Pnorm_{cfg.BayesMaxPNormal:g}"),
+                out_dir=cfg.out_dir,
+                ignore_neutral_state=(hmm_mod.NEUTRAL_STATE_I6 if cfg.HMM_type == "i6"
+                                      else hmm_mod.NEUTRAL_STATE_I3),
+                by=cfg.HMM_report_by,
+            )
+    if done(18) or done(19):
         return result
 
     # STEP 20: states -> proxy expression values (lazy: RunResult expands
@@ -797,7 +961,7 @@ def run(obj: InferCNV, out_dir: Optional[str] = None,
         return result
 
     # STEP 21: optional DE-gene masking (reference :1035-1047)
-    if cfg.mask_nonDE_genes:
+    if cfg.mask_nonDE_genes and skip_past < 21:
         if not obj.has_reference_cells():
             raise ValueError("cannot mask non-DE genes without reference cells")
         log_info("STEP 21: Identify and mask non-DE genes")
@@ -808,16 +972,42 @@ def run(obj: InferCNV, out_dir: Optional[str] = None,
                 obj, p_val_thresh=cfg.mask_nonDE_pval, test_use=cfg.test_use,
                 center_val=float(obj.expr.mean()),
                 require_DE_all_normals=cfg.require_DE_all_normals, device=dev)
+        save(21)
     if done(21):
         return result
 
     # STEP 22: denoising
-    if cfg.denoise:
+    if cfg.denoise and skip_past < 22:
         log_info("STEP 22: Denoising")
         with timer.step("22_denoise"):
             _clear_noise(obj, cfg)
+        save(22)
     if done(22):
         return result
+
+    # STEP 23: the final object (reference :1061-1083)
+    if cfg.save_final_rds and cfg.save_rds:
+        with timer.step("23_final_object"):
+            ckpt.save_step(obj, os.path.join(cfg.out_dir, "run.final.infercnv_obj.npz"),
+                           cum_args[22])
+            # also the R image the reference ecosystem reads (add_to_seurat
+            # reads run.final.infercnv_obj from out_dir)
+            if obj.num_cells * obj.num_genes <= 500_000_000:
+                from infercnv_tpu_torch.io.rds import save_rds_infercnv
+
+                try:
+                    save_rds_infercnv(
+                        obj, os.path.join(cfg.out_dir, "run.final.infercnv_obj"),
+                        options={"analysis_mode": cfg.analysis_mode,
+                                 "HMM_report_by": cfg.HMM_report_by,
+                                 "HMM_type": cfg.HMM_type if cfg.HMM else "",
+                                 "BayesMaxPNormal": cfg.BayesMaxPNormal})
+                except Exception as e:  # interop write must never kill a run
+                    log_warn(f"run.final.infercnv_obj RDS write failed: {e}")
+            else:
+                log_warn("skipping run.final.infercnv_obj RDS (matrix > 5e8 "
+                         "elements; the gzipped float64 R image would be tens "
+                         "of GB — use the .npz checkpoint instead)")
 
     timer.finish()
     result.infercnv_obj = obj

@@ -30,6 +30,15 @@ from infercnv_tpu_torch.sim import meanvar as tmv
 from infercnv_tpu_torch.utils import splines as tsp
 
 from test_pipeline import make_synthetic
+from torch_port_util import one_thread_a_pool
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """Each test with one thread in torch's and the BLAS pools (see
+    torch_port_util.one_thread_a_pool)."""
+    with one_thread_a_pool():
+        yield
 
 
 @pytest.fixture(scope="module")

@@ -177,11 +177,24 @@ def test_order_reduce_matches():
         tgenome.order_reduce(counts, genes, {}, chrs)
 
 
-def test_rds_inputs_wait_for_the_rds_reader(tmp_path):
-    with pytest.raises(NotImplementedError, match="A7"):
-        tl.read_counts_matrix(str(tmp_path / "counts.rds"))
-    with pytest.raises(NotImplementedError, match="A7"):
-        tl.load_r_golden_example()
+def test_rds_inputs_wait_for_the_rds_reader(tmp_path, monkeypatch):
+    """.rds counts (once refused, now read by the port's io/rds.py) read as
+    the JAX package reads them; the .rda example, with its directory
+    absent, fails alike."""
+    from infercnv_tpu.io.rds import write_rds_matrix
+
+    counts, genes, cells, *_ = _tables()
+    path = str(tmp_path / "counts.rds")
+    write_rds_matrix(path, counts, rownames=genes, colnames=cells)
+    tm, tg, tc = tl.read_counts_matrix(path)
+    jm, jg, jc = jl.read_counts_matrix(path)
+    np.testing.assert_array_equal(tm, jm)
+    np.testing.assert_array_equal(tm, counts)
+    assert list(tg) == list(jg) == genes and list(tc) == list(jc) == cells
+    monkeypatch.setenv("INFERCNV_REFERENCE_DIR", str(tmp_path / "absent"))
+    for loader in (tl, jl):
+        with pytest.raises(FileNotFoundError):
+            loader.load_r_golden_example()
 
 
 def test_load_bundled_example_matches():

@@ -13,7 +13,12 @@ ported raise NotImplementedError naming their ROADMAP item, before any
 work; the options that were refused until the op-by-op steps, the DE mask
 and the Leiden, random_trees and per-chromosome partitions were ported run
 against the reference (test_formerly_refused_options_match_the_reference;
-tests/test_torch_pipeline_ops.py holds them in more depth)."""
+tests/test_torch_pipeline_ops.py holds them in more depth), and so do the
+Bayesian filter of steps 18-19 (test_bayes_filter_matches_the_reference:
+exactly with one stand-in sampler in both packages, within Monte Carlo
+error with the real ones) and the checkpoints and RDS output
+(test_save_rds_matches_the_reference; tests/test_torch_checkpoint_rds.py
+holds the files and resume in more depth)."""
 
 import filecmp
 import os
@@ -21,24 +26,43 @@ import os
 import numpy as np
 import pytest
 
+import infercnv_tpu.models.bayes as jbayes
 import infercnv_tpu.runner.pipeline as jp
+import infercnv_tpu_torch.models.bayes as tbayes
 import infercnv_tpu_torch.runner.pipeline as tp
+from infercnv_tpu.io.rds import read_rds_infercnv as j_read_rds
+from infercnv_tpu_torch.io.rds import read_rds_infercnv as t_read_rds
+from infercnv_tpu_torch.runner import checkpoint as tckpt
 from infercnv_tpu_torch.interop import infercnv_from_numpy, trend_fits_from_numpy
 
 from test_pipeline import make_synthetic
+from torch_port_util import one_thread_a_pool, standin_gibbs
 
 KW = dict(window_length=21, no_plot=True, BayesMaxPNormal=0, save_rds=False,
           denoise=True)
 TOL = dict(rtol=2e-5, atol=2e-5)
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """Each test with one thread in torch's and the BLAS pools: under the
+    suite's several worker processes, pools of a thread a core spin
+    against each other (torch_port_util.one_thread_a_pool)."""
+    with one_thread_a_pool():
+        yield
+
+
 def _assert_same_run(rt, rj, dt, dj):
     np.testing.assert_allclose(rt.infercnv_obj.expr, rj.infercnv_obj.expr, **TOL)
     np.testing.assert_array_equal(rt.hmm_states, rj.hmm_states)
     np.testing.assert_array_equal(rt.hmm_proxy_values, rj.hmm_proxy_values)
-    reports = sorted(f for f in os.listdir(dj) if f.startswith("17_HMM_pred"))
+    def step17(d):   # the region reports, not the step-17 checkpoint
+        return sorted(f for f in os.listdir(d)
+                      if f.startswith("17_HMM_pred") and not f.endswith(".npz"))
+
+    reports = step17(dj)
     assert len(reports) == 4
-    assert reports == sorted(f for f in os.listdir(dt) if f.startswith("17_HMM_pred"))
+    assert reports == step17(dt)
     for f in reports:
         assert filecmp.cmp(os.path.join(dt, f), os.path.join(dj, f), shallow=False), f
 
@@ -47,8 +71,8 @@ def _pair(tmp_path, obj_kw=None, **kw):
     jo = make_synthetic(**(obj_kw or {}))
     to = infercnv_from_numpy(vars(jo))
     dj, dt = str(tmp_path / "jax"), str(tmp_path / "torch")
-    rj = jp.run(jo, out_dir=dj, **KW, **kw)
-    rt = tp.run(to, out_dir=dt, device="cpu", **KW, **kw)
+    rj = jp.run(jo, out_dir=dj, **{**KW, **kw})
+    rt = tp.run(to, out_dir=dt, device="cpu", **{**KW, **kw})
     return rt, rj, dt, dj
 
 
@@ -112,9 +136,8 @@ def test_i6_untouched_calls_the_planted_cnvs(tmp_path, sim_method):
 
 
 REFUSED = [
-    (dict(save_rds=True), "A7"),
     (dict(no_plot=False), "A7"),
-    (dict(HMM=True, BayesMaxPNormal=0.5), "A7"),
+    (dict(HMM=True, diagnostics=True), "A7"),
     (dict(plot_steps=True), "A7"),
     (dict(n_devices=2), "A8"),
     (dict(HMM=True, sim_method="splatter"), "A9"),
@@ -180,14 +203,12 @@ FORMERLY_REFUSED = [
     f"{k}={v}" for k, v in kw.items()))
 def test_formerly_refused_options_match_the_reference(tmp_path, carried, monkeypatch, kw):
     from test_torch_pca_knn import jax_omega
-    from torch_port_util import one_thread_a_pool
     from infercnv_tpu_torch.subcluster import pca as tpca
 
     monkeypatch.setattr(tpca, "range_omega", jax_omega)
     args = {"analysis_mode": "samples", "HMM": True, "HMM_type": "i6", "k_nn": 8, **kw}
-    with one_thread_a_pool():
-        rt, rj, dt, dj = _pair(tmp_path, dict(n_normal=12, n_tumor=12, del_factor=0.7,
-                                              amp_factor=1.3), **args)
+    rt, rj, dt, dj = _pair(tmp_path, dict(n_normal=12, n_tumor=12, del_factor=0.7,
+                                          amp_factor=1.3), **args)
     if "up_to_step" in kw:
         np.testing.assert_allclose(rt.infercnv_obj.expr, rj.infercnv_obj.expr, **TOL)
         assert rt.hmm_states is None and rj.hmm_states is None
@@ -196,3 +217,94 @@ def test_formerly_refused_options_match_the_reference(tmp_path, carried, monkeyp
     _assert_same_run(rt, rj, dt, dj)
     for g, subs in rj.infercnv_obj.tumor_subclusters["subclusters"].items():
         assert list(rt.infercnv_obj.tumor_subclusters["subclusters"][g]) == list(subs)
+
+
+@pytest.fixture
+def standin(monkeypatch):
+    """One deterministic sampler in both packages (torch_port_util)."""
+    monkeypatch.setattr(jbayes, "_gibbs_all_regions", standin_gibbs)
+    monkeypatch.setattr(tbayes, "_gibbs_all_regions", standin_gibbs)
+
+
+def _bayes_files(d):
+    return sorted(f for f in os.listdir(d) if f.startswith("HMM_CNV_predictions")
+                  or f.startswith("BayesNetOutput"))
+
+
+def _assert_same_files(dt, dj, names):
+    """Files (and the files of directories) of two out_dirs byte-equal."""
+    for f in names:
+        paths = [f]
+        if os.path.isdir(os.path.join(dj, f)):
+            paths = [os.path.join(f, g) for g in sorted(os.listdir(os.path.join(dj, f)))]
+        for p in paths:
+            assert filecmp.cmp(os.path.join(dt, p), os.path.join(dj, p), shallow=False), p
+
+
+#: step 17's region reports are made by qnorm subclusters or by samples
+BAYES_MODES = {
+    "samples": dict(analysis_mode="samples", HMM_report_by="consensus"),
+    "qnorm": dict(analysis_mode="subclusters", tumor_subcluster_partition_method="qnorm"),
+}
+
+
+@pytest.mark.parametrize("sampler", ["standin", "real"])
+@pytest.mark.parametrize("mode", list(BAYES_MODES))
+def test_bayes_filter_matches_the_reference(tmp_path, carried, request, mode, sampler):
+    """run() at the reference's default BayesMaxPNormal=0.5 (refused until
+    steps 18-19 were ported).  With one stand-in sampler in both packages
+    the filtered states, the Pnorm_0.5 reports and CNV_State_Probabilities
+    .dat are equal to the byte; with the real samplers (draws of different
+    generators) the modelled regions are equal, their posteriors within
+    0.05, and every region is decided alike (the planted CNVs are kept,
+    P(normal) far from the threshold), so the filtered states are equal."""
+    if sampler == "standin":
+        request.getfixturevalue("standin")
+    rt, rj, dt, dj = _pair(tmp_path, dict(del_factor=0.6, amp_factor=1.6), HMM=True,
+                           HMM_type="i6", BayesMaxPNormal=0.5, **BAYES_MODES[mode])
+    _assert_same_run(rt, rj, dt, dj)
+    bt, bj = rt.bayes_result, rj.bayes_result
+    assert bt.cnv_region_names == bj.cnv_region_names and bt.cnv_region_names
+    assert bt.removed_regions == bj.removed_regions
+    assert bt.reassigned == bj.reassigned
+    names = _bayes_files(dj)
+    assert len(names) == 5 and names == _bayes_files(dt)
+    if sampler == "standin":
+        _assert_same_files(dt, dj, names)
+        np.testing.assert_array_equal(bt.cnv_state_probabilities,
+                                      bj.cnv_state_probabilities)
+    else:
+        _assert_same_files(dt, dj, [f for f in names if f.startswith("HMM_CNV")])
+        pt, pj = bt.cnv_state_probabilities, bj.cnv_state_probabilities
+        np.testing.assert_allclose(pt, pj, atol=0.05)
+        assert (np.abs(pj[2] - 0.5) > 0.2).all()       # decisive
+    assert len(rt.region_reports) == len(rj.region_reports)
+
+
+def test_save_rds_matches_the_reference(tmp_path, carried, standin):
+    """save_rds=True (refused until the checkpoints and RDS were ported)
+    with the Bayesian filter: the same checkpoint files as the reference's,
+    each holding the same object (expr within 2e-5) and states, and the
+    same final RDS object."""
+    rt, rj, dt, dj = _pair(tmp_path, HMM=True, HMM_type="i6", save_rds=True,
+                           BayesMaxPNormal=0.5, **BAYES_MODES["samples"])
+    _assert_same_run(rt, rj, dt, dj)
+    ckpts = sorted(f for f in os.listdir(dj) if f.endswith(".npz"))
+    assert ckpts == sorted(f for f in os.listdir(dt) if f.endswith(".npz"))
+    assert {"14_invert_log_transform.HMMi6.infercnv_obj.npz",
+            "17_HMM_pred.HMMi6.infercnv_obj.npz",
+            "19_HMM_pred.repr_intensitiesfiltered.HMMi6.infercnv_obj.npz",
+            "preliminary.infercnv_obj.npz", "run.final.infercnv_obj.npz"} <= set(ckpts)
+    for f in ckpts:
+        ot, at, st = tckpt.load_step(os.path.join(dt, f))
+        oj, aj, sj = tckpt.load_step(os.path.join(dj, f))
+        assert at == aj, f
+        np.testing.assert_allclose(ot.expr, oj.expr, err_msg=f, **TOL)
+        assert (st is None) == (sj is None), f
+        if st is not None:
+            np.testing.assert_array_equal(st, sj)
+    ft = t_read_rds(os.path.join(dt, "run.final.infercnv_obj"))
+    fj = j_read_rds(os.path.join(dj, "run.final.infercnv_obj"))
+    np.testing.assert_allclose(ft.expr, fj.expr, **TOL)
+    np.testing.assert_allclose(ft.expr, rt.infercnv_obj.expr, rtol=0, atol=1e-6)
+    assert ft.cell_names == fj.cell_names and ft.options == fj.options

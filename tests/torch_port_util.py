@@ -111,3 +111,28 @@ def one_thread_a_pool():
             yield
     finally:
         torch.set_num_threads(n)
+
+
+def standin_gibbs(key, loglik, cell_mask, n_chains, n_burn, n_iter, thin=1):
+    """A deterministic stand-in for both packages' ``_gibbs_all_regions``
+    (same arguments and returns, as numpy): each real cell takes the state
+    of its largest log-likelihood (eps one-hot), and theta is the posterior
+    mean of Dirichlet(1 + counts) over those states, which depends only on
+    the integer counts.  So two packages whose log-likelihoods differ by
+    rounding give equal results wherever no cell's two best states lie
+    within that rounding; ``standin_margin`` is the smallest such gap."""
+    ll = np.asarray(loglik, np.float64)
+    m = np.asarray(cell_mask, np.float64)
+    R, C, S = ll.shape
+    eps = np.eye(S)[ll.argmax(axis=-1)]                          # [R, C, S]
+    counts = (eps * m[..., None]).sum(axis=1)                     # [R, S]
+    theta = (counts + 1.0) / (m.sum(axis=1)[:, None] + S)
+    traces = np.broadcast_to(theta, (n_chains, n_iter // thin, R, S)).copy()
+    return theta, eps, traces
+
+
+def standin_margin(loglik, cell_mask) -> float:
+    """The smallest gap between a real cell's two largest log-likelihoods."""
+    ll = np.sort(np.asarray(loglik, np.float64), axis=-1)
+    gap = ll[..., -1] - ll[..., -2]
+    return float(gap[np.asarray(cell_mask) > 0].min())

@@ -47,20 +47,36 @@ Phases, each printing one JSON line:
               gated on the filtered states and reports; i3 with the
               coordinates smooth in cells mode (BayesMaxPNormal=0)
   run_i6_leiden  the same object, run()'s default Leiden partition with
-              cluster_by_groups=False and the Bayesian filter: one
-              32,768-cell group (tiled kNN, the dendrogram on
-              device-computed subcluster profiles), step 15 from the
-              residual kept on the card
+              cluster_by_groups=False, the Bayesian filter and the plots at
+              the reference's defaults (no_plot=False, png_res=300,
+              inspect_subclusters, plot_probabilities): one 32,768-cell
+              group (tiled kNN, the dendrogram on device-computed
+              subcluster profiles), step 15 from the residual kept on the
+              card; each plot step's seconds, data side and render apart,
+              every plot file there, no plot failed
   run_op_by_op  the same object, use_engine=False up to step 14 (kernels
               3 and 7 through the chromosome smooth and the centring),
               against the engine's residual within 2e-4
+  plots       whether matplotlib renders here (the heatmaps' data side
+              runs on the card either way; without matplotlib each plot
+              step fails at its render, as the reference lets it, and the
+              render gates below are reported as not run)
+  heatmap_data  the heatmap's data side (viz/heatmap.py) on the Leiden
+              run's final object, 34,816 x 8448, on the card and on the
+              CPU: the centre, the range (sampled, and exact over the
+              whole matrix), the orders (the Leiden subclusters' linkages;
+              the PC1 order of eight 4,096-cell groups), the panes and the
+              key's histogram, held card against CPU, with each side's
+              seconds and the card's peak memory
   run_reference, run_subcluster_reference  run() on 1,024 cells, the card
-              against the CPU: i6 with qnorm at the defaults
-              BayesMaxPNormal=0.5 and save_rds=True (modelled regions,
-              posteriors, filtered states, checkpoints, the final RDS read
-              back, and a second run() that resumes); the Leiden with
-              per-chromosome subclusters and HMM; the op-by-op options
-              with random_trees, split references and the DE mask
+              against the CPU: i6 with qnorm at the full defaults
+              (BayesMaxPNormal=0.5, save_rds=True, the plots,
+              diagnostics=True: modelled regions, posteriors, filtered
+              states, checkpoints, the final RDS read back, the plots'
+              files, groupings, thresholds and PNG fingerprints, and a
+              second run() that resumes); the Leiden with per-chromosome
+              subclusters and HMM; the op-by-op options with random_trees,
+              split references and the DE mask
 Each path phase runs two warm-up chunks, then sets every launch count to 0
 just before it and reads them just after; besides its wall-clock rate it
 reports the chunks' mean device span (CUDA events).  Then the kernel table as one JSON line, the nvidia-smi line, and
@@ -484,7 +500,7 @@ def drive_run(obj, out_dir: Path, dev, **kw):
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
-    res = run_pipeline(obj, out_dir=str(out_dir), device=dev, **RUN_KW, **kw)
+    res = run_pipeline(obj, out_dir=str(out_dir), device=dev, **{**RUN_KW, **kw})
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return res, wall, read_launches()
@@ -883,6 +899,219 @@ def bayes_summary(res) -> dict:
             "max_rhat": rhat}
 
 
+
+def have_matplotlib() -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec("matplotlib") is not None
+
+
+class PlotWarnings:
+    """Collects the warnings the port logs while it is entered; `failed`
+    lists those that say a plot failed."""
+
+    def __enter__(self):
+        import logging
+
+        self.records = []
+        outer = self
+
+        class Grab(logging.Handler):
+            def emit(self, record):
+                outer.records.append(record.getMessage())
+
+        self.handler = Grab(level=logging.WARNING)
+        logging.getLogger("infercnv_tpu_torch").addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        import logging
+
+        logging.getLogger("infercnv_tpu_torch").removeHandler(self.handler)
+
+    @property
+    def failed(self):
+        return [m for m in self.records if " failed" in m]
+
+
+def check_plot_warnings(w: PlotWarnings, mpl: bool, what: str) -> list:
+    """With matplotlib, no plot may fail; without it, only at the missing
+    module.  Returns the failures."""
+    bad = [m for m in w.failed if mpl or "matplotlib" not in m]
+    require(not bad, f"{what}: plots failed: {bad[:5]}")
+    return w.failed
+
+
+#: the heatmaps run() draws, by output name (infercnv_tpu/runner/pipeline.py
+#: :801-808, :823-846, :936-945, :1019-1030, :1084-1118)
+def heatmap_names(hmm_token: str, pnorm: float, subclusters: bool) -> list:
+    names = ["infercnv.preliminary", f"infercnv.17_HMM_pred{hmm_token}",
+             f"infercnv.20_HMM_pred{hmm_token}.Pnorm_{pnorm:g}.repr_intensities",
+             "infercnv"]
+    return (["infercnv_subclusters"] if subclusters else []) + names
+
+
+def expected_plot_files(out_dir: Path, hmm_token: str, pnorm: float, regions: int,
+                        subclusters: bool, mpl: bool, diagnostics: bool = False):
+    """(files the JAX package writes for the plots of such a run, files
+    missing or empty): each heatmap's PNG and its groupings and thresholds
+    text, the Bayes probability plots (a page of region bars a 200 regions,
+    of cell panels a 64) and the P(normal) heatmap, and with diagnostics
+    the MCMC files; the PNGs only where matplotlib renders (the text
+    outputs are written before the figure)."""
+    files = []
+    for n in heatmap_names(hmm_token, pnorm, subclusters):
+        files += [f"{n}.observation_groupings.txt", f"{n}.heatmap_thresholds.txt"]
+        if mpl:
+            files.append(f"{n}.png")
+    bayes = f"BayesNetOutput{hmm_token}"
+    if mpl:
+        files.append("infercnv.NormalProbabilities.PostFiltering.png")
+        for stem, per in (("cnvProbs", 200), ("cellProbs", 64)):
+            files += [f"{bayes}/{stem}{'' if k == 0 else f'.page{k + 1}'}.png"
+                      for k in range(-(-regions // per))]
+        if diagnostics:
+            files.append(f"{bayes}/MCMC_Diagnostics.png")
+    if diagnostics:
+        files.append(f"{bayes}/MCMC_Diagnostics.txt")
+    missing = [f for f in files if not (out_dir / f).is_file()
+               or (out_dir / f).stat().st_size == 0]
+    return files, missing
+
+
+def plot_step_seconds(records) -> dict:
+    """Each plot step's seconds, with its data side and render."""
+    out = {}
+    for r in records:
+        step = r["step"]
+        base, _, part = step.partition(".")
+        if base.endswith(("_plot", "_plots")):
+            out.setdefault(base, {})[part or "total"] = r["seconds"]
+    return out
+
+
+def png_blocks(path) -> "np.ndarray":
+    """24x24 block means of a PNG's gray levels (tests/test_heatmap_golden.py
+    :_render)."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.image as mpimg
+
+    gray = mpimg.imread(str(path))[..., :3].mean(axis=2)
+    H, W = gray.shape
+    bh, bw = H // 24, W // 24
+    return gray[:bh * 24, :bw * 24].reshape(24, bh, 24, bw).mean(axis=(1, 3))
+
+
+#: relative tolerance of the PC1 near-ties (f32 products over 8,448 genes)
+PC1_TIE_REL = 1e-4
+
+
+def heatmap_data_check(obj, dev, smi, name: str, **kw) -> dict:
+    """heatmap_data on the card and on the CPU on one object: the centre
+    within 1e-6 relative, lo and hi within f32 rounding (two ulps, the
+    centre's one included), panes within 1e-6, the linkage orders equal,
+    the PC1 orders equal but for near-ties (the card's order sorted by the
+    CPU's projections within PC1_TIE_REL of their largest), the histogram
+    counts equal.  Returns the summary."""
+    import numpy as np
+    import torch
+
+    from infercnv_tpu_torch.viz.heatmap import heatmap_data
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    g = heatmap_data(obj, device=dev, **kw)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    t0 = time.perf_counter()
+    c = heatmap_data(obj, device="cpu", **kw)
+    cpu_s = time.perf_counter() - t0
+    f32 = 2.0 ** -22
+    require(abs(g.x_center - c.x_center) <= 1e-6 * abs(c.x_center),
+            f"heatmap_data {name}: centre {g.x_center} against {c.x_center}")
+    require(abs(g.lo - c.lo) <= f32 * abs(c.lo) and abs(g.hi - c.hi) <= f32 * abs(c.hi),
+            f"heatmap_data {name}: range {g.lo, g.hi} against {c.lo, c.hi}")
+    pane_err = max(float(np.abs(a - b).max()) if a.size else 0.0 for a, b in
+                   [(g.obs_mat, c.obs_mat)] + [(a[0], b[0]) for a, b in
+                                               zip(g.ref_mats, c.ref_mats)])
+    require(pane_err <= 1e-6, f"heatmap_data {name}: panes differ by {pane_err}")
+    require(np.array_equal(g.hist_counts, c.hist_counts),
+            f"heatmap_data {name}: histogram counts differ")
+    # orders: PC1 blocks (logged with their projections) against near-ties,
+    # every other position equal
+    pc1_rows = set()
+    near, worst = 0, 0.0
+    ties = []      # [group, row, card position, CPU projection step there]
+    require(set(g.pc1) == set(c.pc1), f"heatmap_data {name}: PC1 blocks differ")
+    for key, (sel, pc) in c.pc1.items():
+        pg = g.pc1[key][1]
+        og, oc = np.argsort(pg, kind="stable"), np.argsort(pc, kind="stable")
+        q = pc[og]                     # the CPU's projections in the card's order
+        scale = float(np.abs(pc).max())
+        drop = float(max(0.0, -np.diff(q).min())) if q.size > 1 else 0.0
+        worst = max(worst, drop / max(scale, 1e-30))
+        require(drop <= PC1_TIE_REL * scale,
+                f"heatmap_data {name}: PC1 order of {key} differs beyond near-ties "
+                f"({drop} of {scale})")
+        moved = np.nonzero(og != oc)[0]
+        near += int(moved.size)
+        ties += [[key[0], int(sel[og[k]]), int(k), float(q[k] - q[max(k - 1, 0)])]
+                 for k in moved[:20 - len(ties)]]
+        pc1_rows.update(int(i) for i in sel)
+    def rest(order):
+        return np.array([i for i in order if int(i) not in pc1_rows])
+    same_linkage = (np.array_equal(rest(g.obs_idx), rest(c.obs_idx))
+                    and np.array_equal(rest(g.ref_idx), rest(c.ref_idx))
+                    and g.obs_group_sizes == c.obs_group_sizes)
+    require(same_linkage, f"heatmap_data {name}: linkage orders differ")
+    return dict(card_s=card_s, cpu_s=cpu_s, card_parts=g.seconds, cpu_parts=c.seconds,
+                peak_card_gb=peak, held_before_gb=held / 1e9, exact_stats=g.exact_stats,
+                x_center={"card": g.x_center, "cpu": c.x_center},
+                range={"card": [g.lo, g.hi], "cpu": [c.lo, c.hi]},
+                pane_max_abs_err=pane_err, pane_rows=int(g.obs_mat.shape[0]),
+                pc1_blocks=len(c.pc1), pc1_positions_differing=near,
+                pc1_worst_rel=worst, pc1_near_ties=ties,
+                linkage_orders_equal=same_linkage)
+
+
+def heatmap_data_phase(obj, dev, smi) -> None:
+    """The data side on the Leiden run's final object: (a) as run() draws
+    it (cluster_by_groups=False, the Leiden subclusters' linkages); (b)
+    the preliminary plot of a samples run (eight 4,096-cell groups, each
+    ordered by PC1, the references by linkage); and the exact range over
+    the whole 294 M-value matrix (the sampled-statistics rule takes rows
+    above 200 M values), card against CPU."""
+    import numpy as np
+    import torch
+
+    from infercnv_tpu_torch.viz.heatmap import expr_mean, get_x_range_auto
+
+    a = heatmap_data_check(obj, dev, smi, "leiden", cluster_by_groups=False)
+    plain = obj.shallow_copy()
+    plain.tumor_subclusters = None
+    b = heatmap_data_check(plain, dev, smi, "groups")
+    center = expr_mean(obj.expr, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rg = get_x_range_auto(obj.expr, center, device=dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rc = get_x_range_auto(obj.expr, center, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    require(np.allclose(rg, rc, rtol=2.0 ** -23, atol=0),
+            f"heatmap_data: the exact range differs: {rg} against {rc}")
+    emit(phase="heatmap_data", card=smi, cells=int(obj.expr.shape[0]),
+         genes=int(obj.expr.shape[1]), leiden=a, groups=b,
+         exact_range={"card": list(rg), "cpu": list(rc), "values": int(obj.expr.size),
+                      "card_s": card_s, "cpu_s": cpu_s})
+
+
 def run_phases(dev, smi, out_root: Path) -> dict:
     """The run() phases; returns each full-width phase's launches."""
     import filecmp
@@ -894,6 +1123,13 @@ def run_phases(dev, smi, out_root: Path) -> dict:
     from infercnv_tpu_torch.runner.pipeline import run as run_pipeline
 
     launches = {}
+    mpl = have_matplotlib()
+    if mpl:
+        import matplotlib
+
+        emit(phase="plots", render=f"matplotlib {matplotlib.__version__}")
+    else:
+        emit(phase="plots", render="matplotlib not installed")
     # ---- run_i6_subclusters: i6, qnorm subclusters, bench genome --------
     go = bench_genome()
     obj, make_s = make_run_object(go, RUN_OBS, RUN_REF)
@@ -927,16 +1163,18 @@ def run_phases(dev, smi, out_root: Path) -> dict:
     del res
 
     # ---- run_i6_leiden: the default Leiden partition, one 32,768-cell ----
-    # group (cluster_by_groups=False), the residual kept on the card
+    # group (cluster_by_groups=False), the residual kept on the card, the
+    # plots at the reference's defaults
     from infercnv_tpu_torch.subcluster import partition
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     partition.ROWS_FROM = None
-    with Step15Log(capture=True, record=False) as step15:
+    with Step15Log(capture=True, record=False) as step15, PlotWarnings() as warned:
         res, wall, n = drive_run(obj, out_root / "run_i6_leiden", dev, HMM=True,
                                  HMM_type="i6", analysis_mode="subclusters",
-                                 cluster_by_groups=False, BayesMaxPNormal=0.5)
+                                 cluster_by_groups=False, BayesMaxPNormal=0.5,
+                                 no_plot=False)
     engine_residual = step15.inputs[0].expr   # the engine's step-14 residual
     launches["run_i6_leiden"] = n
     for k in ("residual_fused", "viterbi", "smooth_banded", "row_median"):
@@ -975,12 +1213,29 @@ def run_phases(dev, smi, out_root: Path) -> dict:
               f"calls {calls_met} (reported, not enforced): {json.dumps(calls)}; "
               f"VST features {json.dumps(vst_counts)}", file=sys.stderr, flush=True)
     C, G = res.infercnv_obj.expr.shape
+    # the plots: every file there and none failed (without matplotlib,
+    # each fails at its render: the PNGs and their gates are not run)
+    plot_failures = check_plot_warnings(warned, mpl, "run_i6_leiden")
+    regions = len(res.bayes_result.cnv_region_names) if res.bayes_result else 0
+    files, missing = expected_plot_files(
+        out_root / "run_i6_leiden", ".HMMi6.hmm_mode-subclusters", 0.5, regions,
+        subclusters=True, mpl=mpl)
+    require(not missing, f"run_i6_leiden: plot files missing or empty: {missing[:8]}")
+    plots = plot_step_seconds(res.timer.records)
+    require({"15_subcluster_plot", "15_prelim_plot", "17_state_plot", "18_bayes_plots",
+             "20_proxy_plot", "23_final_plot"} <= set(plots),
+            f"run_i6_leiden: plot steps recorded: {sorted(plots)}")
     emit(phase="run_i6_leiden", card=smi, cells=C, genes=G, launches=n,
          wall_s=wall, step_seconds=res.timer.records,
          rows_from=partition.ROWS_FROM,
          max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
          called=calls, side_purity_met=sides_met, planted_calls_met=calls_met,
-         vst_features=vst_counts, bayes=bayes_summary(res))
+         vst_features=vst_counts, bayes=bayes_summary(res),
+         plots={"render": "matplotlib" if mpl else "not run: matplotlib not installed",
+                "step_seconds": plots, "files": len(files),
+                "failed_at_the_missing_matplotlib": len(plot_failures)})
+    # ---- heatmap_data: the data side on this run's final object ----------
+    heatmap_data_phase(res.infercnv_obj, dev, smi)
     del res
 
     # ---- run_op_by_op: steps 4-14 op by op against the engine's -------
@@ -1040,10 +1295,12 @@ def run_phases(dev, smi, out_root: Path) -> dict:
     obj, _ = make_run_object(go, RUN_CHECK_OBS, RUN_CHECK_REF)
     kw = dict(HMM=True, HMM_type="i6", analysis_mode="subclusters",
               tumor_subcluster_partition_method="qnorm", denoise=True,
-              no_plot=True, BayesMaxPNormal=0.5, save_rds=True)
+              no_plot=False, diagnostics=True, BayesMaxPNormal=0.5, save_rds=True)
     dirs = {d: out_root / f"run_reference_{d}" for d in ("card", "cpu")}
-    rg = run_pipeline(obj, out_dir=str(dirs["card"]), device=dev, **kw)
-    rc = run_pipeline(obj, out_dir=str(dirs["cpu"]), device="cpu", **kw)
+    with PlotWarnings() as warned:
+        rg = run_pipeline(obj, out_dir=str(dirs["card"]), device=dev, **kw)
+        rc = run_pipeline(obj, out_dir=str(dirs["cpu"]), device="cpu", **kw)
+    plot_failures = check_plot_warnings(warned, mpl, "run_reference")
     eg, ec = rg.infercnv_obj.expr, rc.infercnv_obj.expr
     ok, err, flips = denoised_agree(eg, ec)
     require(ok, f"run_reference: card and CPU final expr differ (max {err} "
@@ -1080,6 +1337,35 @@ def run_phases(dev, smi, out_root: Path) -> dict:
     require(ckpts == sorted(p.name for p in dirs["card"].glob("*.npz"))
             and "run.final.infercnv_obj.npz" in ckpts,
             f"run_reference: checkpoint files differ: {ckpts}")
+    # the plots: the same files; the groupings byte-equal; the thresholds
+    # within the tolerance the two runs' expr is held to (their ranges are
+    # order statistics of those matrices); the PNG fingerprints within 0.02
+    regions = len(bc.cnv_region_names)
+    plot_files, missing = [], []
+    for d in ("card", "cpu"):
+        plot_files, miss = expected_plot_files(
+            dirs[d], ".HMMi6.hmm_mode-subclusters", 0.5, regions, subclusters=True,
+            mpl=mpl, diagnostics=True)
+        missing += [f"{d}/{m}" for m in miss]
+    require(not missing, f"run_reference: plot files missing or empty: {missing[:8]}")
+    pngs = lambda d: sorted(str(p.relative_to(d)) for p in d.rglob("*.png"))
+    require(pngs(dirs["card"]) == pngs(dirs["cpu"]),
+            "run_reference: the card and the CPU wrote different plot files")
+    names = heatmap_names(".HMMi6.hmm_mode-subclusters", 0.5, True)
+    for n in names:
+        require(filecmp.cmp(dirs["card"] / f"{n}.observation_groupings.txt",
+                            dirs["cpu"] / f"{n}.observation_groupings.txt", shallow=False),
+                f"run_reference: {n}.observation_groupings.txt differs")
+    thr_err = max(float(np.abs(np.loadtxt(dirs["card"] / f"{n}.heatmap_thresholds.txt")
+                               - np.loadtxt(dirs["cpu"] / f"{n}.heatmap_thresholds.txt")).max())
+                  for n in names)
+    require(thr_err <= RESID_TOL * 4, f"run_reference: thresholds differ by {thr_err}")
+    png_err = None
+    if mpl:
+        png_err = max(float(np.abs(png_blocks(dirs["card"] / p)
+                                   - png_blocks(dirs["cpu"] / p)).max())
+                      for p in pngs(dirs["cpu"]))
+        require(png_err <= 0.02, f"run_reference: PNG fingerprints differ by {png_err}")
     back = read_rds_infercnv(str(dirs["card"] / "run.final.infercnv_obj"))
     rds_err = float(np.abs(back.expr - eg).max())
     require(back.expr.shape == eg.shape and rds_err <= 2e-5,
@@ -1100,7 +1386,13 @@ def run_phases(dev, smi, out_root: Path) -> dict:
          regions_near_threshold=n_near, filtered_states_equal=not differ.any(),
          removed={"card": len(bg.removed_regions), "cpu": len(bc.removed_regions)},
          checkpoints=ckpts, rds_max_abs_err=rds_err, resumed_steps=steps,
-         resume_s=resume_s, bayes_card=bayes_summary(rg))
+         resume_s=resume_s, bayes_card=bayes_summary(rg),
+         plots={"files": len(plot_files), "groupings_byte_equal": len(names),
+                "thresholds_max_abs_err": thr_err,
+                "png_fingerprint_max_abs_err": (png_err if mpl else
+                                                "not run: matplotlib not installed"),
+                "failed_at_the_missing_matplotlib": len(plot_failures),
+                "step_seconds_card": plot_step_seconds(rg.timer.records)})
     del rg, rc, rr
 
     # ---- run_subcluster_reference: Leiden per chromosome, and the -------

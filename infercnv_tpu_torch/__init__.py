@@ -15,10 +15,11 @@ statistics, residual chunks, subcluster sums and the group-mean Viterbi),
 the ``InferCNV`` object and its loaders, and ``runner.pipeline.run`` (steps
 4-14 on the engine or op by op, the hspike, every step-15 partition with
 the default Leiden from the residual kept on the card, the i6/i3 HMM, the
-region reports, the non-DE mask); ``run`` refuses the options whose
-modules are not ported yet (checkpoints, plots, the Bayes filter, the
-mesh, splatter).  The Leiden is the reference's C++ (``native/``), built
-with g++ at first use into the same directory.
+region reports, the non-DE mask, the Bayes filter, the checkpoints and
+every plot, each heatmap's data side on the device); ``run`` refuses the
+options whose modules are not ported yet (the mesh, splatter).  The
+Leiden is the reference's C++ (``native/``), built with g++ at first use
+into the same directory.
 """
 
 from infercnv_tpu_torch.device import resolve_device

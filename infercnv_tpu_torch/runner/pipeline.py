@@ -23,7 +23,16 @@ lines 33-1121):
     Gibbs sampler on the device, models/bayes.py) and the filtered
     ``Pnorm_*`` region reports;
   * step 20: the lazy proxy values; step 21: the non-DE gene mask;
-    step 22: denoise; step 23: the final object (``.npz`` and RDS).
+    step 22: denoise; step 23: the final object (``.npz`` and RDS);
+  * the plots at the reference's call sites and with its arguments: the
+    per-step heatmaps (``plot_steps``, op by op), the subcluster plot, the
+    preliminary heatmap (step 15), the HMM state and proxy heatmaps (steps
+    17 and 20, factorized states in O(K*G)), the Bayes probability plots
+    and the MCMC diagnostics (step 18), the final heatmap (step 23), all
+    ordered by one ``row_order_cache``.  Each heatmap's data side runs on
+    the device (viz/heatmap.py) and its seconds are recorded beside the
+    render's (``<step>.data``, ``<step>.render``); a plot that fails logs a
+    warning and the run goes on, as in the reference.
 
 With ``save_rds`` each step writes its checkpoint (runner/checkpoint.py;
 on the engine path only step 14 of steps 4-14, as the reference does), and
@@ -39,8 +48,7 @@ version; ``device=None`` runs on CUDA and raises without it.
 
 Options whose modules are not ported yet are refused before any work with a
 NotImplementedError naming the ROADMAP item (``_refuse_unported``): the
-plots, and with them the MCMC diagnostics (A7), the device mesh (A8) and
-the splatter simulation (A9).
+device mesh (A8) and the splatter simulation (A9).
 """
 
 from __future__ import annotations
@@ -72,6 +80,14 @@ from infercnv_tpu_torch.subcluster.partition import (
 )
 from infercnv_tpu_torch.utils.logging import log_info, log_warn, set_debug
 from infercnv_tpu_torch.utils.profiling import StepTimer
+from infercnv_tpu_torch.viz.bayes_plots import (
+    mcmc_diagnostic_plots,
+    plot_cell_probabilities,
+    plot_cnv_probabilities,
+    post_prob_normal_heatmap,
+)
+from infercnv_tpu_torch.viz.heatmap import plot_cnv
+from infercnv_tpu_torch.viz.subclusters import plot_subclusters
 
 
 class RunResult:
@@ -177,19 +193,78 @@ def _refuse_unported(cfg: RunConfig) -> None:
         raise NotImplementedError(
             f"{option} is not ported yet: {what} (ROADMAP {item})")
 
-    if not cfg.no_plot:
-        refuse("no_plot=False", "A7", "the heatmaps; pass no_plot=True")
-    if cfg.HMM and cfg.diagnostics:
-        # the reference draws the MCMC diagnostic plots even under no_plot
-        refuse("diagnostics=True with HMM", "A7",
-               "the MCMC diagnostic plots; pass diagnostics=False")
-    if cfg.plot_steps:
-        refuse("plot_steps=True", "A7", "the per-step heatmaps")
     if cfg.n_devices or cfg.mesh is not None:
         refuse("n_devices / mesh", "A8", "more than one device")
     if (cfg.sim_method == "splatter" and cfg.up_to_step >= 3
             and ((cfg.HMM and cfg.HMM_type == "i6") or cfg.sim_foreground)):
         refuse("sim_method='splatter'", "A9", "the splatter simulation")
+
+
+def _plotted(timer: StepTimer, step: str, what: str, fn, *args, **kwargs) -> None:
+    """Run one plot call under the step's timer with a `timings` dict, and
+    record its data side and render as ``<step>.data`` / ``<step>.render``;
+    a failure logs "<what> failed" and the run goes on (plotting must never
+    kill an analysis run)."""
+    timings: Dict[str, float] = {}
+    with timer.step(step):
+        try:
+            fn(*args, timings=timings, **kwargs)
+        except Exception as e:
+            log_warn(f"{what} failed: {e}")
+    for part, sec in timings.items():
+        timer.records.append({"step": f"{step}.{part}", "seconds": round(sec, 4)})
+
+
+def _plot_states(obj: InferCNV, values, cfg: RunConfig, output_filename: str,
+                 title: str, x_center: float, x_range, row_order_cache=None,
+                 value_lut=None, timings=None, **plot_kw) -> None:
+    """Render a state/proxy-value matrix with the standard heatmap layout
+    (reference :410-457; plots at steps 17 and 20, inferCNV_ops.R:1330-1351,
+    1483-1500).  values: a [C, G] matrix or a models.hmm.GroupedStates
+    (factorized, rendered in O(K*G) without expanding [C, G]).  value_lut:
+    state value -> display value (proxy levels); integer matrices without a
+    lut display the states themselves (an identity lut).  plot_kw: the
+    run's rendering arguments (png_res, hclust_method, ...)."""
+    kw = {}
+    if hasattr(values, "cell_to_row"):  # GroupedStates
+        rows = (np.asarray(value_lut, np.float32)[values.rows]
+                if value_lut is not None else values.rows.astype(np.float32))
+        kw["row_values"] = (rows, values.cell_to_row)
+        view_expr = obj.expr  # only consulted on a row-order cache miss
+    else:
+        view_expr = np.asarray(values)
+        if value_lut is not None:
+            kw["value_lut"] = value_lut
+        elif view_expr.dtype.kind in "iu":
+            kw["value_lut"] = np.arange(int(view_expr.max()) + 1,
+                                        dtype=np.float32)
+        else:
+            view_expr = view_expr.astype(np.float32, copy=False)
+    view = InferCNV(
+        expr=view_expr, counts=obj.counts,
+        gene_order=obj.gene_order, cell_names=list(obj.cell_names),
+        ref_groups=obj.ref_groups, obs_groups=obj.obs_groups,
+        tumor_subclusters=obj.tumor_subclusters,
+    )
+    plot_cnv(view, out_dir=cfg.out_dir, output_filename=output_filename,
+             title=title, k_obs_groups=cfg.k_obs_groups,
+             cluster_by_groups=cfg.cluster_by_groups,
+             cluster_references=cfg.cluster_references,
+             x_center=x_center, x_range=x_range,
+             plot_chr_scale=cfg.plot_chr_scale, chr_lengths=cfg.chr_lengths,
+             row_order_cache=row_order_cache, timings=timings, **plot_kw, **kw)
+
+
+def _bayes_plots(obj: InferCNV, bayes_out, bayes_dir: str, out_dir: str,
+                 timings=None) -> None:
+    """Step 18's probability plots (reference :974-988)."""
+    t0 = time.perf_counter()
+    plot_cnv_probabilities(bayes_out, bayes_dir)
+    plot_cell_probabilities(bayes_out, bayes_dir)
+    if timings is not None:
+        timings["render"] = time.perf_counter() - t0
+    post_prob_normal_heatmap(obj, bayes_out, bayes_out.regions, out_dir,
+                             timings=timings)
 
 
 def _ref_onehot(obj: InferCNV) -> np.ndarray:
@@ -538,6 +613,12 @@ def run(obj: InferCNV, out_dir: Optional[str] = None,
     obj = obj.shallow_copy()
     timer = StepTimer(cfg.out_dir)
     result.timer = timer
+    # one pane ordering shared by the preliminary / state / final heatmaps
+    # (the reference orders every pane by the same stored dendrograms)
+    row_order_cache: Dict = {}
+    plot_kw = dict(png_res=cfg.png_res, hclust_method=cfg.plot_hclust_method,
+                   max_pane_rows=2000 if cfg.useRaster else 10**9,
+                   output_format=cfg.output_format, device=dev)
 
     resume_token = f".HMM{cfg.HMM_type}" if cfg.HMM else ""
     hmm_resume_token = f"{resume_token}.hmm_mode-{cfg.analysis_mode}"
@@ -594,6 +675,16 @@ def run(obj: InferCNV, out_dir: Optional[str] = None,
         if cfg.save_rds and skip_past < step:
             path = os.path.join(cfg.out_dir, ckpt.step_filename(step, resume_token))
             ckpt.save_step(obj, path, cum_args[step - 1], states)
+        if cfg.plot_steps and not cfg.no_plot and skip_past < step and 2 <= step <= 16:
+            # incremental step plots (reference plot_steps at each stage,
+            # :543-556, with its arguments)
+            name = f"{step:02d}_{ckpt.STEP_TOKENS[step]}"
+            _plotted(timer, f"{step:02d}_step_plot", "step plot", plot_cnv,
+                     obj, out_dir=cfg.out_dir, output_filename=f"infercnv.{name}",
+                     title=name, k_obs_groups=cfg.k_obs_groups,
+                     cluster_by_groups=cfg.cluster_by_groups,
+                     cluster_references=cfg.cluster_references,
+                     output_format=cfg.output_format, device=dev)
 
     def done(step: int) -> bool:
         if cfg.up_to_step == step:
@@ -816,6 +907,10 @@ def run(obj: InferCNV, out_dir: Optional[str] = None,
             for ph, sec in sorted(PHASE_TIMES.items(), key=lambda kv: -kv[1]):
                 timer.records.append({"step": f"15_subclusters.{ph}",
                                       "seconds": round(sec, 4)})
+            if cfg.inspect_subclusters and not cfg.no_plot:
+                _plotted(timer, "15_subcluster_plot", "subcluster plot",
+                         plot_subclusters, obj, out_dir=cfg.out_dir,
+                         output_filename="infercnv_subclusters", **plot_kw)
         elif cfg.analysis_mode != "subclusters":
             log_info("STEP 15: Clustering samples (not defining tumor subclusters)")
             with timer.step("15_clustering"):
@@ -829,6 +924,19 @@ def run(obj: InferCNV, out_dir: Optional[str] = None,
         if cfg.save_rds:
             ckpt.save_step(obj, os.path.join(cfg.out_dir, "preliminary.infercnv_obj.npz"),
                            cum_args[14])
+        if not (cfg.no_prelim_plot or cfg.no_plot):
+            _plotted(timer, "15_prelim_plot", "preliminary plot", plot_cnv,
+                     obj, out_dir=cfg.out_dir,
+                     output_filename="infercnv.preliminary",
+                     title="Preliminary infercnv (pre-noise filtering)",
+                     k_obs_groups=cfg.k_obs_groups,
+                     cluster_by_groups=cfg.cluster_by_groups,
+                     cluster_references=cfg.cluster_references,
+                     plot_chr_scale=cfg.plot_chr_scale,
+                     chr_lengths=cfg.chr_lengths,
+                     write_expr=cfg.write_expr_matrix,
+                     write_phylo=cfg.write_phylo,
+                     row_order_cache=row_order_cache, **plot_kw)
     device_chunks = None
     if done(15):
         return result
@@ -912,6 +1020,13 @@ def run(obj: InferCNV, out_dir: Optional[str] = None,
             save(17, states=_states_matrix(hmm_states))
         result.hmm_states = hmm_states
         result.hmm_gene_order = obj.gene_order
+        if not cfg.no_plot:
+            _plotted(timer, "17_state_plot", "state plot", _plot_states,
+                     obj, hmm_states, cfg,
+                     output_filename=f"infercnv.17_HMM_pred{hmm_resume_token}",
+                     title="17_HMM_preds", x_center=float(neutral),
+                     x_range=(0.0, 6.0) if cfg.HMM_type == "i6" else (1.0, 3.0),
+                     row_order_cache=row_order_cache, **plot_kw)
     if done(17):
         return result
 
@@ -937,6 +1052,16 @@ def run(obj: InferCNV, out_dir: Optional[str] = None,
             timer.records.append({"step": f"18_bayes.{part}", "seconds": round(sec, 4)})
         result.bayes_result = bayes_out
         result.hmm_states = hmm_states
+        bayes_dir = os.path.join(cfg.out_dir, f"BayesNetOutput{hmm_resume_token}")
+        if cfg.plot_probabilities and not cfg.no_plot:
+            _plotted(timer, "18_bayes_plots", "Bayes probability plots",
+                     _bayes_plots, obj, bayes_out, bayes_dir, cfg.out_dir)
+        if cfg.diagnostics:
+            # drawn even under no_plot, as the reference does
+            try:
+                mcmc_diagnostic_plots(bayes_out, bayes_dir)
+            except Exception as e:
+                log_warn(f"MCMC diagnostic plots failed: {e}")
         save(19, states=hmm_states)
         # the filtered reports also replace the in-memory step-17 reports
         with timer.step("19_region_reports"):
@@ -956,7 +1081,17 @@ def run(obj: InferCNV, out_dir: Optional[str] = None,
     # the [C, G] float matrix only if the caller reads hmm_proxy_values)
     if cfg.HMM and hmm_states is not None:
         log_info("STEP 20: Converting HMM-based CNV states to repr expr vals")
-        result._proxy_num_states = 6 if cfg.HMM_type == "i6" else 3
+        num_states = 6 if cfg.HMM_type == "i6" else 3
+        result._proxy_num_states = num_states
+        if not cfg.no_plot:
+            _plotted(timer, "20_proxy_plot", "state plot", _plot_states,
+                     obj, hmm_states, cfg,
+                     output_filename=(f"infercnv.20_HMM_pred{hmm_resume_token}"
+                                      f".Pnorm_{cfg.BayesMaxPNormal:g}.repr_intensities"),
+                     title="20_HMM_preds.repr_intensities",
+                     x_center=1.0, x_range=(-1.0, 3.0),
+                     row_order_cache=row_order_cache,
+                     value_lut=hmm_mod.proxy_value_lut(num_states), **plot_kw)
     if done(20):
         return result
 
@@ -1008,6 +1143,24 @@ def run(obj: InferCNV, out_dir: Optional[str] = None,
                 log_warn("skipping run.final.infercnv_obj RDS (matrix > 5e8 "
                          "elements; the gzipped float64 R image would be tens "
                          "of GB — use the .npz checkpoint instead)")
+    if not cfg.no_plot:
+        _plotted(timer, "23_final_plot", "final heatmap", plot_cnv,
+                 obj, out_dir=cfg.out_dir, output_filename="infercnv",
+                 title=cfg.title, obs_title=cfg.title_obs,
+                 ref_title=cfg.title_ref, contig_lab_size=cfg.contig_lab_size,
+                 color_safe_pal=cfg.color_safe,
+                 custom_color_pal=cfg.custom_color_pal,
+                 ref_contig=cfg.ref_contig, dynamic_resize=cfg.dynamic_resize,
+                 k_obs_groups=cfg.k_obs_groups,
+                 cluster_by_groups=cfg.cluster_by_groups,
+                 cluster_references=cfg.cluster_references,
+                 x_center=(cfg.final_center_val if cfg.final_center_val is not None
+                           else 1.0),
+                 x_range=(cfg.final_scale_limits if cfg.final_scale_limits is not None
+                          else "auto"),
+                 plot_chr_scale=cfg.plot_chr_scale, chr_lengths=cfg.chr_lengths,
+                 write_expr=cfg.write_expr_matrix, write_phylo=cfg.write_phylo,
+                 row_order_cache=row_order_cache, **plot_kw)
 
     timer.finish()
     result.infercnv_obj = obj

@@ -46,7 +46,10 @@ def test_every_module_imports_without_jax():
     mods = _modules()
     assert {"infercnv_tpu_torch.parallel.engine", "infercnv_tpu_torch.models.bayes",
             "infercnv_tpu_torch.runner.checkpoint", "infercnv_tpu_torch.io.rds",
-            "infercnv_tpu_torch.viz.bayes_plots"} <= set(mods)
+            "infercnv_tpu_torch.viz.bayes_plots", "infercnv_tpu_torch.viz.heatmap",
+            "infercnv_tpu_torch.viz.dendro", "infercnv_tpu_torch.viz.subclusters",
+            "infercnv_tpu_torch.viz.per_group", "infercnv_tpu_torch.report.newick",
+            "infercnv_tpu_torch.report.seurat_export"} <= set(mods)
     code = ("import sys\n"
             + "".join(f"sys.modules[{m!r}] = None\n" for m in FORBIDDEN)
             + "import importlib\n"

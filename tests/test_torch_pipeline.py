@@ -10,15 +10,17 @@ the two packages draw different random bits (their draws are held to their
 distribution in tests/test_torch_hspike.py), and so is the reference's PCA
 range-finder draw for the Leiden partition.  Options whose modules are not
 ported raise NotImplementedError naming their ROADMAP item, before any
-work; the options that were refused until the op-by-op steps, the DE mask
-and the Leiden, random_trees and per-chromosome partitions were ported run
-against the reference (test_formerly_refused_options_match_the_reference;
+work; the options that were refused until the op-by-op steps, the DE mask,
+the Leiden, random_trees and per-chromosome partitions and the plots were
+ported run against the reference (test_formerly_refused_options_match_the_reference;
 tests/test_torch_pipeline_ops.py holds them in more depth), and so do the
 Bayesian filter of steps 18-19 (test_bayes_filter_matches_the_reference:
 exactly with one stand-in sampler in both packages, within Monte Carlo
 error with the real ones) and the checkpoints and RDS output
 (test_save_rds_matches_the_reference; tests/test_torch_checkpoint_rds.py
-holds the files and resume in more depth)."""
+holds the files and resume in more depth), and run() with every plot
+(test_run_with_plots_matches_the_reference: the same files, text outputs
+byte-equal, each PNG's block fingerprint within 0.02)."""
 
 import filecmp
 import os
@@ -36,7 +38,7 @@ from infercnv_tpu_torch.runner import checkpoint as tckpt
 from infercnv_tpu_torch.interop import infercnv_from_numpy, trend_fits_from_numpy
 
 from test_pipeline import make_synthetic
-from torch_port_util import one_thread_a_pool, standin_gibbs
+from torch_port_util import assert_same_outputs, one_thread_a_pool, standin_gibbs
 
 KW = dict(window_length=21, no_plot=True, BayesMaxPNormal=0, save_rds=False,
           denoise=True)
@@ -136,9 +138,6 @@ def test_i6_untouched_calls_the_planted_cnvs(tmp_path, sim_method):
 
 
 REFUSED = [
-    (dict(no_plot=False), "A7"),
-    (dict(HMM=True, diagnostics=True), "A7"),
-    (dict(plot_steps=True), "A7"),
     (dict(n_devices=2), "A8"),
     (dict(HMM=True, sim_method="splatter"), "A9"),
 ]
@@ -185,9 +184,12 @@ def test_up_to_step_returns_the_reference_object(tmp_path, step):
 
 
 #: the options refused until the op-by-op steps 4-14, the DE mask of step 21
-#: (ROADMAP A5) and the Leiden, random_trees and per-chromosome partitions
-#: (A6) were ported, each now run against the reference
+#: (ROADMAP A5), the Leiden, random_trees and per-chromosome partitions (A6)
+#: and the plots (A7.3) were ported, each now run against the reference
 FORMERLY_REFUSED = [
+    dict(no_plot=False),
+    dict(HMM=True, diagnostics=True),
+    dict(plot_steps=True),
     dict(mask_nonDE_genes=True),
     dict(use_engine=False),
     dict(up_to_step=9),
@@ -308,3 +310,46 @@ def test_save_rds_matches_the_reference(tmp_path, carried, standin):
     np.testing.assert_allclose(ft.expr, fj.expr, **TOL)
     np.testing.assert_allclose(ft.expr, rt.infercnv_obj.expr, rtol=0, atol=1e-6)
     assert ft.cell_names == fj.cell_names and ft.options == fj.options
+
+
+#: run() with its plots: (mode, options), each at no_plot=False with the
+#: Bayesian filter; the qnorm run draws the subcluster plot too, and one
+#: run draws every step's heatmap (op by op)
+PLOT_RUNS = {
+    "samples": dict(BAYES_MODES["samples"]),
+    "qnorm": dict(BAYES_MODES["qnorm"], diagnostics=True),
+    "plot_steps": dict(BAYES_MODES["samples"], plot_steps=True),
+}
+
+
+@pytest.mark.parametrize("mode", list(PLOT_RUNS))
+def test_run_with_plots_matches_the_reference(tmp_path, carried, standin, mode):
+    """run() at no_plot=False, HMM=True, BayesMaxPNormal=0.5 (the plots
+    were refused until they were ported), one stand-in sampler in both
+    packages: the same output files, every text output byte-equal (the
+    heatmaps' groupings and thresholds, the reports, the Bayes files, the
+    MCMC diagnostics), each PNG's 24x24 block fingerprint within 0.02.
+    The op-by-op steps' matrices differ from the reference's within the
+    2e-5 their results are held to, and so do the 1%/99% ranges drawn
+    from them: with plot_steps the heatmaps' thresholds are held within
+    that tolerance, every other text output byte-equal."""
+    obj_kw = dict(n_normal=12, n_tumor=12, del_factor=0.6, amp_factor=1.6)
+    rt, rj, dt, dj = _pair(tmp_path, obj_kw, HMM=True, HMM_type="i6",
+                           no_plot=False, BayesMaxPNormal=0.5, png_res=40,
+                           **PLOT_RUNS[mode])
+    _assert_same_run(rt, rj, dt, dj)
+    numeric = (".heatmap_thresholds.txt",) if mode == "plot_steps" else ()
+    names = assert_same_outputs(dt, dj, numeric=numeric, tol=TOL["rtol"])
+    pngs = {f for f in names if f.endswith(".png")}
+    assert {"infercnv.preliminary.png", "infercnv.png",
+            "infercnv.NormalProbabilities.PostFiltering.png"} <= pngs
+    assert any(f.startswith("infercnv.17_HMM_pred") for f in pngs)
+    assert any(f.startswith("infercnv.20_HMM_pred") for f in pngs)
+    if mode == "qnorm":
+        assert "infercnv_subclusters.png" in pngs
+        assert any(f.endswith("MCMC_Diagnostics.txt") for f in names)
+    if mode == "plot_steps":
+        assert {"infercnv.04_logtransformed.png", "infercnv.14_invert_log_transform.png"} <= pngs
+    steps = {r["step"] for r in rt.timer.records}
+    assert {"15_prelim_plot.data", "15_prelim_plot.render", "17_state_plot",
+            "18_bayes_plots.data", "20_proxy_plot.data", "23_final_plot.render"} <= steps

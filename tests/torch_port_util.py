@@ -136,3 +136,50 @@ def standin_margin(loglik, cell_mask) -> float:
     ll = np.sort(np.asarray(loglik, np.float64), axis=-1)
     gap = ll[..., -1] - ll[..., -2]
     return float(gap[np.asarray(cell_mask) > 0].min())
+
+
+def png_blocks(path) -> np.ndarray:
+    """24x24 block means of a PNG's gray levels, as
+    tests/test_heatmap_golden.py:_render fingerprints a heatmap."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.image as mpimg
+
+    gray = mpimg.imread(str(path))[..., :3].mean(axis=2)
+    H, W = gray.shape
+    bh, bw = H // 24, W // 24
+    return gray[:bh * 24, :bw * 24].reshape(24, bh, 24, bw).mean(axis=(1, 3))
+
+
+def assert_same_outputs(dt, dj, skip=("step_timings.tsv",), png_atol=0.02,
+                        numeric=(), tol=0.0) -> list:
+    """Two output directories hold the same files (walked recursively):
+    every text file byte-equal, except files ending in one of `numeric`,
+    whose lines of numbers agree within rtol = atol = tol; every PNG the
+    same size with its block fingerprint (png_blocks) within png_atol.
+    Returns the files."""
+    import filecmp
+    import os
+
+    import matplotlib.image as mpimg
+
+    def files(d):
+        return sorted(os.path.relpath(os.path.join(r, f), d)
+                      for r, _, fs in os.walk(d) for f in fs)
+
+    names = files(dj)
+    assert names == files(dt), sorted(set(names) ^ set(files(dt)))
+    for f in names:
+        a, b = os.path.join(dt, f), os.path.join(dj, f)
+        if f in skip:
+            continue
+        if f.endswith(".png"):
+            assert mpimg.imread(a).shape == mpimg.imread(b).shape, f
+            np.testing.assert_allclose(png_blocks(a), png_blocks(b), rtol=0,
+                                       atol=png_atol, err_msg=f)
+        elif f.endswith(tuple(numeric)):
+            np.testing.assert_allclose(np.loadtxt(a), np.loadtxt(b), rtol=tol,
+                                       atol=tol, err_msg=f)
+        else:
+            assert filecmp.cmp(a, b, shallow=False), f
+    return names

@@ -77,6 +77,27 @@ Phases, each printing one JSON line:
               second run() that resumes); the Leiden with per-chromosome
               subclusters and HMM; the op-by-op options with random_trees,
               split references and the DE mask
+  mesh_engine the main path's engine over CellMesh([card, card]): two
+              32,768-cell chunks through subcluster_chunk and the group
+              Viterbi, against the unsharded engine (residual within 2e-5,
+              group sums within float32 summation order, states equal),
+              cells/s of both and the launches a shard
+  mesh_stats  sharded_median, sharded_quantile (0.01, 0.99) and
+              sharded_group_gene_stats on a 2-shard mesh of the card over
+              run_i6_subclusters' 34,816 library sizes and final rows,
+              against numpy (exact; means within 1e-6 relative)
+  mesh_run    run(mesh=CellMesh([card, card])) on run_reference's object in
+              subcluster and cell mode against the one-device card run
+  multiprocess  two processes on the card under gloo (chip_smoke.py
+              --worker RANK WORLD PORT DIR DEVICE), each loading its .npy slice
+              with load_counts_shard: the sharded median, group statistics,
+              engine and run() against one process; then a one-rank NCCL
+              group through sharded_median and to_host
+  entry_points  the CLI on files written from run_reference's object
+              (--HMM --denoise --median_filter) against a direct run(),
+              run(sim_method="splatter") gated on its planted calls, and
+              the median filter card against CPU, timed on the Leiden
+              run's object (or one 4,096-cell group of it)
 Each path phase runs two warm-up chunks, then sets every launch count to 0
 just before it and reads them just after; besides its wall-clock rate it
 reports the chunks' mean device span (CUDA events).  Then the kernel table as one JSON line, the nvidia-smi line, and
@@ -1160,6 +1181,8 @@ def run_phases(dev, smi, out_root: Path) -> dict:
     emit(phase="run_i6_subclusters", card=smi, cells=C, genes=G, launches=n,
          make_object_s=make_s, wall_s=wall, step_seconds=res.timer.records,
          called=calls, bayes=bayes_summary(res))
+    # ---- mesh_stats: the sharded statistics over this object and run ----
+    mesh_stats_phase(obj, res.infercnv_obj.expr, dev, smi)
     del res
 
     # ---- run_i6_leiden: the default Leiden partition, one 32,768-cell ----
@@ -1236,6 +1259,8 @@ def run_phases(dev, smi, out_root: Path) -> dict:
                 "failed_at_the_missing_matplotlib": len(plot_failures)})
     # ---- heatmap_data: the data side on this run's final object ----------
     heatmap_data_phase(res.infercnv_obj, dev, smi)
+    # the median filter's time on this object, reported by entry_points
+    mf_timing = median_filter_timing(res.infercnv_obj, dev)
     del res
 
     # ---- run_op_by_op: steps 4-14 op by op against the engine's -------
@@ -1415,7 +1440,502 @@ def run_phases(dev, smi, out_root: Path) -> dict:
     emit(phase="run_subcluster_reference", leiden_per_chr=dict(a, seconds=a_s),
          op_by_op_random_trees=dict(b, seconds=b_s))
     torch.cuda.empty_cache()
+
+    # ---- the mesh in run(), several processes, the entry points ---------
+    mesh_run_phase(obj, dev, smi, out_root)
+    multiprocess_phase(dev, smi, out_root)
+    entry_points_phase(obj, dev, smi, out_root, mf_timing)
+    torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# the cell mesh and the entry points
+# ---------------------------------------------------------------------------
+
+#: cells of the multiprocess phase's counts.npy (engine and run())
+MP_CELLS = 4096
+#: the median filter is timed on the whole Leiden object when one 4,096-cell
+#: group's time predicts at most this many seconds for it
+MEDIAN_FILTER_WHOLE_S = 30.0
+
+
+def mesh_engine_phase(dev, smi, inp) -> None:
+    """The main path's engine over CellMesh([dev, dev]): 2 chunks through
+    subcluster_chunk, then the group-mean Viterbi, against the unsharded
+    engine on the same chunks (residual within RESID_TOL, group sums within
+    float32 summation order, states equal), and both timed."""
+    import torch
+
+    from infercnv_tpu_torch.parallel.engine import CnvEngine
+    from infercnv_tpu_torch.parallel.stats import CellMesh
+
+    mesh = CellMesh([dev, dev])
+    me = CnvEngine(inp.go, inp.hmm, inp.config, mesh=mesh)
+    chunks = (inp.counts_a, inp.counts_b)
+
+    def stream(engine):
+        acc = None
+        for c in chunks:
+            resid, *acc = engine.subcluster_chunk(c, inp.nf, inp.ml, inp.mr,
+                                                  inp.noise, inp.onehot, acc=acc)
+        return resid, acc
+
+    stream(me)                                   # warm-up (allocations)
+    out = {}
+    for name, engine in (("unsharded", inp.engine), ("sharded", me)):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        resid, acc = stream(engine)
+        states = engine.viterbi_group_means(acc[0] / acc[1][:, None])
+        torch.cuda.synchronize()
+        out[name] = (resid, acc, states, time.perf_counter() - t0, read_launches())
+    r1, acc1, s1, t1, _ = out["unsharded"]
+    rm, accm, sm, tm, launches = out["sharded"]
+    require(len(rm.shards) == 2 and all(s.device == dev for s in rm.shards),
+            "mesh_engine: the residual is not in two shards on the card")
+    err = float((torch.cat(rm.shards) - r1).abs().max())
+    sum_err = float(((accm[0] - acc1[0]).abs() / (acc1[0].abs() + 1.0)).max())
+    require(float((torch.cat(rm.shards) - r1).abs().sub(RESID_TOL * (1 + r1.abs())).max()) <= 0,
+            f"mesh_engine: sharded and unsharded residuals differ by {err}")
+    require(sum_err <= 1e-5 and bool(torch.equal(accm[1], acc1[1])),
+            f"mesh_engine: group sums differ by {sum_err} (relative)")
+    require(bool(torch.equal(sm, s1)), "mesh_engine: group states differ")
+    for k in ("residual_fused", "viterbi"):
+        require(launches[k] > 0, f"mesh_engine: {k} was not launched")
+    cells = len(chunks) * CHUNK
+    emit(phase="mesh_engine", card=smi, shards=2, chunks=len(chunks),
+         resid_max_abs_err=err, group_sums_max_rel_err=sum_err, states_equal=True,
+         cells_per_s={"sharded": cells / tm, "unsharded": cells / t1},
+         seconds={"sharded": tm, "unsharded": t1}, launches=launches,
+         launches_per_shard={k: v / 2 for k, v in launches.items()})
+    del rm, r1
+
+
+def mesh_stats_phase(obj, resid, dev, smi) -> None:
+    """sharded_median / sharded_quantile over the run object's library
+    sizes and sharded_group_gene_stats over the run's residual rows on a
+    2-shard mesh of the card, against numpy: the median and quantiles
+    exact, the means within 1e-6 relative, the variances within 1e-6 of the
+    mean square (their float32 formula subtracts two terms of that size)."""
+    import numpy as np
+    import torch
+
+    from infercnv_tpu_torch.parallel.stats import (
+        CellMesh,
+        put_cell_sharded,
+        sharded_group_gene_stats,
+        sharded_median,
+        sharded_quantile,
+    )
+
+    mesh = CellMesh([dev, dev])
+    lib = np.asarray(obj.expr, np.float32).sum(axis=1)
+    t0 = time.perf_counter()
+    med = float(sharded_median(lib, mesh))
+    med_s = time.perf_counter() - t0
+    require(med == float(np.median(lib)), f"mesh_stats: median {med} != {np.median(lib)}")
+    srt = np.sort(lib)
+    quant = {}
+    for q in (0.01, 0.99):
+        h = (lib.size - 1) * q
+        lo = int(np.floor(h))
+        want = srt[lo] + np.float32(h - lo) * (srt[min(lo + 1, lib.size - 1)] - srt[lo])
+        got = float(sharded_quantile(lib, q, mesh))
+        require(got == float(want), f"mesh_stats: quantile {q}: {got} != {want}")
+        quant[q] = got
+    groups = list(obj.obs_groups.values()) + list(obj.ref_groups.values())
+    onehot = np.zeros((len(groups), lib.size), np.float32)
+    for k, g in enumerate(groups):
+        onehot[k, g] = 1
+    x = put_cell_sharded(np.asarray(resid, np.float32), mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mu, sd = sharded_group_gene_stats(x, onehot, mesh)
+    torch.cuda.synchronize()
+    stats_s = time.perf_counter() - t0
+    mu, var = mu.cpu().numpy(), (sd * sd).cpu().numpy()
+    mean_err = var_err = 0.0
+    for k, g in enumerate(groups):
+        sel = np.asarray(resid[g], np.float64)
+        m = sel.mean(axis=0)
+        mean_err = max(mean_err, float((np.abs(mu[k] - m) / np.abs(m)).max()))
+        var_err = max(var_err, float((np.abs(var[k] - sel.var(axis=0, ddof=1))
+                                      / (sel * sel).mean(axis=0)).max()))
+    require(mean_err <= 1e-6 and var_err <= 1e-6,
+            f"mesh_stats: group means off by {mean_err}, variances by {var_err}")
+    emit(phase="mesh_stats", card=smi, shards=2, cells=int(lib.size),
+         genes=int(resid.shape[1]), groups=len(groups), median=med,
+         quantiles={str(q): v for q, v in quant.items()},
+         group_mean_max_rel_err=mean_err, group_var_max_err_of_mean_square=var_err,
+         seconds={"median": med_s, "group_stats": stats_s})
+    del x
+
+
+def mesh_run_phase(obj, dev, smi, out_root: Path) -> None:
+    """run(mesh=CellMesh([dev, dev])) on the 1,024-cell object in
+    subcluster and cell mode against the one-device card run: states equal,
+    expr within 1e-5."""
+    import numpy as np
+
+    from infercnv_tpu_torch.parallel.stats import CellMesh
+
+    out = {}
+    for mode in ("subclusters", "cells"):
+        kw = dict(HMM=True, HMM_type="i6", analysis_mode=mode, BayesMaxPNormal=0,
+                  tumor_subcluster_partition_method="qnorm")
+        r1, w1, _ = drive_run(obj, out_root / f"mesh_run_{mode}_one", dev, **kw)
+        rm, wm, n = drive_run(obj, out_root / f"mesh_run_{mode}_mesh", dev,
+                              mesh=CellMesh([dev, dev]), **kw)
+        err = float(np.abs(rm.infercnv_obj.expr - r1.infercnv_obj.expr).max())
+        require(bool(np.array_equal(rm.hmm_states, r1.hmm_states)),
+                f"mesh_run: {mode}: the mesh's states differ from one device's")
+        require(err <= 1e-5, f"mesh_run: {mode}: expr differs by {err}")
+        require(n["residual_fused"] > 0 and n["viterbi"] > 0,
+                f"mesh_run: {mode}: launches {n}")
+        out[mode] = dict(expr_max_abs_err=err, states_equal=True, launches=n,
+                         wall_s={"mesh": wm, "one_device": w1})
+    emit(phase="mesh_run", card=smi, cells=int(obj.num_cells), shards=2, modes=out)
+
+
+def _mp_inputs(data_dir: Path):
+    """The multiprocess phase's inputs, read alike in every process from
+    counts.npy: the bench genome, the counts [C, G] (memory-mapped), the
+    reference cells (the first eighth), and the run object (references
+    "ref", the rest "obs0" and "obs1", obs1 with the planted loss)."""
+    import numpy as np
+
+    from infercnv_tpu_torch.core.object import create_infercnv_object
+
+    go = bench_genome()
+    counts = np.load(data_dir / "counts.npy", mmap_mode="r")
+    C = counts.shape[0]
+    n_ref = C // 8
+    cells = [f"c{i}" for i in range(C)]
+    ann = {c: ("ref" if i < n_ref else "obs0" if i < C // 2 else "obs1")
+           for i, c in enumerate(cells)}
+    table = {go.names[i]: (go.chr_names[go.chr_ids[i]], int(go.start[i]) + 1,
+                           int(go.stop[i]) + 1) for i in range(go.num_genes)}
+    obj = create_infercnv_object(np.asarray(counts).T, list(go.names), cells, ann,
+                                 table, list(go.chr_names), ref_group_names=["ref"])
+    return go, obj, counts, n_ref
+
+
+def _mp_compute(dev, data_dir: Path, mesh) -> dict:
+    """The multiprocess phase's work in one process (mesh None) or in one
+    rank of several: the sharded median of the library sizes, the
+    reference group's gene means, the engine's full_chunk, run()."""
+    import numpy as np
+    import torch
+
+    from infercnv_tpu_torch.io.sharded import global_cell_array, load_counts_shard
+    from infercnv_tpu_torch.parallel.engine import CnvEngine, EngineConfig
+    from infercnv_tpu_torch.parallel.stats import (
+        sharded_group_gene_stats,
+        sharded_median,
+        to_host,
+    )
+    from infercnv_tpu_torch.runner.pipeline import run as run_pipeline
+
+    go, obj, counts, n_ref = _mp_inputs(data_dir)
+    C = counts.shape[0]
+    config = EngineConfig(denoise=True, sd_amplifier=1.5)
+    if mesh is None:
+        x = np.array(counts)
+        nf = float(np.median(x.sum(axis=1)))
+        ref = x[:n_ref]
+        gmean = ref.astype(np.float64).mean(axis=0).astype(np.float32)
+        engine = CnvEngine(go, bench_hmm(), config, device=dev)
+    else:
+        local, _g, _c, (lo, hi) = load_counts_shard(str(data_dir / "counts.npy"))
+        x = global_cell_array(local, mesh, C)
+        nf = float(sharded_median(global_cell_array(
+            local.sum(axis=1).astype(np.float32), mesh, C), mesh))
+        oh = (np.arange(lo, hi) < n_ref).astype(np.float32)[:, None]
+        gmean, _sd = sharded_group_gene_stats(x, global_cell_array(oh, mesh, C), mesh)
+        gmean = gmean[0].cpu().numpy()
+        engine = CnvEngine(go, bench_hmm(), config, mesh=mesh)
+        ref = to_host(x)[:n_ref]
+    ml, mr, noise = engine.ref_stats(ref, nf)
+    resid, states = engine.full_chunk(x, nf, ml, mr, noise)
+    resid, states = to_host(resid), to_host(states)
+    kw = dict(HMM=True, HMM_type="i6", analysis_mode="subclusters",
+              tumor_subcluster_partition_method="qnorm", BayesMaxPNormal=0,
+              **RUN_KW)
+    name = "one" if mesh is None else f"rank{mesh.rank}"
+    res = run_pipeline(obj, out_dir=str(data_dir / f"run_{name}"), device=dev,
+                       mesh=mesh, **kw)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return dict(nf=nf, gmean=np.asarray(gmean), resid=resid, states=states,
+                run_expr=res.infercnv_obj.expr, run_states=res.hmm_states)
+
+
+def worker(argv) -> int:
+    """One rank of the multiprocess phase: chip_smoke.py --worker RANK WORLD
+    PORT DIR DEVICE (gloo, DEVICE as the rank's one shard); writes
+    DIR/rank<RANK>.npz."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    rank, world, port, data_dir = int(argv[0]), int(argv[1]), argv[2], Path(argv[3])
+    dev = torch.device(argv[4])
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        return fail("worker: no CUDA device")
+    sys.path.insert(0, str(ROOT))
+    from infercnv_tpu_torch.parallel.stats import CellMesh
+
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    try:
+        out = _mp_compute(dev, data_dir, CellMesh([dev], group=dist.group.WORLD))
+    finally:
+        dist.destroy_process_group()
+    np.savez(data_dir / f"rank{rank}.npz", **out)
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _nccl_one_rank(dev) -> dict:
+    """A one-rank NCCL group on the card: the sharded median and to_host
+    through NCCL's collectives (CUDA tensors)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from infercnv_tpu_torch.parallel.stats import (
+        CellMesh,
+        put_cell_sharded,
+        sharded_median,
+        to_host,
+    )
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = CellMesh([dev], group=dist.group.WORLD)
+        require(mesh.collective_device() == dev, "nccl: collectives not on the card")
+        v = np.random.default_rng(SEED).normal(size=4096).astype(np.float32)
+        med = float(sharded_median(v, mesh))
+        x = np.arange(4096 * 3, dtype=np.float32).reshape(4096, 3)
+        back = to_host(put_cell_sharded(x, mesh))
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    require(med == float(np.median(v)), f"nccl: median {med} != {np.median(v)}")
+    require(bool(np.array_equal(back, x)), "nccl: to_host did not give the rows back")
+    return {"backend": "nccl", "ranks": 1, "median_equal": True, "to_host_equal": True}
+
+
+def multiprocess_phase(dev, smi, out_root: Path) -> None:
+    """Two processes on the one card under gloo (NCCL refuses two ranks on
+    one device), each loading its .npy cell slice with load_counts_shard
+    and running the sharded median, the group statistics, the engine and
+    run() over the 2-rank mesh, against the same work in this process on
+    one device; then a one-rank NCCL group through the same collectives."""
+    import numpy as np
+    import torch
+
+    data_dir = out_root / "multiprocess"
+    shutil.rmtree(data_dir, ignore_errors=True)
+    data_dir.mkdir(parents=True)
+    go = bench_genome()
+    rng = np.random.default_rng(SEED)
+    lam = np.repeat(rng.gamma(2.0, 30.0, go.num_genes)[None, :], MP_CELLS, axis=0)
+    lam[MP_CELLS // 2:, go.chr_gene_indices("chr2")] *= 0.5     # a loss in obs1
+    np.save(data_dir / "counts.npy", rng.poisson(lam).astype(np.float32))
+    del lam
+    torch.cuda.empty_cache()
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--worker",
+                               str(r), "2", str(port), str(data_dir), str(dev)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=420)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    mp_s = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        require(p.returncode == 0, f"multiprocess: rank {r} exited {p.returncode}:\n"
+                f"{log[-3000:]}")
+    one = _mp_compute(dev, data_dir, None)
+    ranks = [dict(np.load(data_dir / f"rank{r}.npz")) for r in range(2)]
+    for r, z in enumerate(ranks):
+        require(float(z["nf"]) == one["nf"], f"multiprocess: rank {r}'s depth factor")
+        require(bool(np.array_equal(z["states"], one["states"])),
+                f"multiprocess: rank {r}'s engine states differ")
+        require(bool(np.array_equal(z["run_states"], one["run_states"])),
+                f"multiprocess: rank {r}'s run() states differ")
+    resid_err = max(float(np.abs(z["resid"] - one["resid"]).max()) for z in ranks)
+    run_err = max(float(np.abs(z["run_expr"] - one["run_expr"]).max()) for z in ranks)
+    mean_err = float((np.abs(ranks[0]["gmean"] - one["gmean"])
+                      / np.maximum(one["gmean"], 1e-6)).max())
+    require(resid_err <= RESID_TOL * 4 and run_err <= 1e-5 and mean_err <= 1e-6,
+            f"multiprocess: resid {resid_err}, run expr {run_err}, means {mean_err}")
+    nccl = _nccl_one_rank(dev)
+    many = ("not run: one card (NCCL takes one rank a card)"
+            if torch.cuda.device_count() < 2 else
+            "not run: this phase drives one card")
+    emit(phase="multiprocess", card=smi, backend="gloo", ranks=2, cards=1,
+         cells=MP_CELLS, genes=go.num_genes,
+         workers_s=mp_s, resid_max_abs_err=resid_err, run_expr_max_abs_err=run_err,
+         group_mean_max_rel_err=mean_err, states_equal=True, nccl_one_rank=nccl,
+         nccl_many_cards=many)
+
+
+def median_filter_timing(obj, dev) -> dict:
+    """apply_median_filtering on the card: one 4,096-cell group timed first,
+    then the whole object when that group's time predicts at most
+    MEDIAN_FILTER_WHOLE_S seconds for it."""
+    import numpy as np
+    import torch
+
+    from infercnv_tpu_torch.core.object import InferCNV
+    from infercnv_tpu_torch.ops.median_filter import apply_median_filtering
+
+    name = next(iter(obj.obs_groups))
+    idx = np.asarray(obj.obs_groups[name])
+    one = InferCNV(expr=np.asarray(obj.expr[idx]), counts=None, gene_order=obj.gene_order,
+                   cell_names=[obj.cell_names[i] for i in idx], ref_groups={},
+                   obs_groups={name: np.arange(idx.size)})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    apply_median_filtering(one, device=dev)
+    torch.cuda.synchronize()
+    group_s = time.perf_counter() - t0
+    out = {"group": name, "group_cells": int(idx.size), "group_s": group_s,
+           "genes": int(obj.num_genes)}
+    predicted = group_s * obj.num_cells / idx.size
+    if predicted <= MEDIAN_FILTER_WHOLE_S:
+        whole = obj.shallow_copy()
+        t0 = time.perf_counter()
+        apply_median_filtering(whole, device=dev)
+        torch.cuda.synchronize()
+        out.update(whole_cells=int(obj.num_cells), whole_s=time.perf_counter() - t0)
+    else:
+        out.update(whole="not run: one group's time predicts "
+                   f"{predicted:.1f} s for the whole object")
+    return out
+
+
+def _write_inputs(obj, d: Path):
+    """The object as the reference's three input files (tab-delimited)."""
+    import numpy as np
+
+    d.mkdir(parents=True, exist_ok=True)
+    go = obj.gene_order
+    counts = np.asarray(obj.counts if obj.counts is not None else obj.expr)
+    with open(d / "counts.tsv", "w") as f:
+        f.write("\t".join(obj.cell_names) + "\n")
+        for g, row in zip(go.names, counts.T.astype(np.int64)):
+            f.write(g + "\t" + "\t".join(map(str, row.tolist())) + "\n")
+    with open(d / "genes.txt", "w") as f:
+        for i, g in enumerate(go.names):
+            f.write(f"{g}\t{go.chr_names[go.chr_ids[i]]}\t{int(go.start[i]) + 1}"
+                    f"\t{int(go.stop[i]) + 1}\n")
+    with open(d / "annots.txt", "w") as f:
+        groups = {**obj.obs_groups, **obj.ref_groups}
+        for name, idx in groups.items():
+            for i in idx:
+                f.write(f"{obj.cell_names[i]}\t{name}\n")
+    return d / "counts.tsv", d / "genes.txt", d / "annots.txt"
+
+
+def entry_points_phase(obj, dev, smi, out_root: Path, mf_timing: dict) -> None:
+    """The CLI on files written from the 1,024-cell object (its run()
+    against a direct run() with the arguments the CLI passed: exit 0, the
+    file set as run() writes it plus the CLI's own, the region reports
+    byte-equal), run(sim_method="splatter") gated on its planted calls, and
+    the median filter on the card against the CPU, with its timing."""
+    import filecmp
+
+    import numpy as np
+
+    import infercnv_tpu_torch.runner.pipeline as pipeline
+    from infercnv_tpu_torch import cli
+    from infercnv_tpu_torch.ops.median_filter import apply_median_filtering
+
+    d = out_root / "entry_points"
+    shutil.rmtree(d, ignore_errors=True)
+    counts, genes, annots = _write_inputs(obj, d / "inputs")
+    mpl = have_matplotlib()
+    argv = ["--raw_counts_matrix", str(counts), "--gene_order_file", str(genes),
+            "--annotations_file", str(annots), "--ref_group_names", "ref0,ref1",
+            "--out_dir", str(d / "cli"), "--HMM", "--denoise", "--median_filter",
+            "--no_save_rds", "--BayesMaxPNormal", "0", "--device", str(dev)]
+    if not mpl:   # the CLI plots the median-filtered object outside run()
+        argv.append("--no_plot")
+    seen = {}
+    real_run = pipeline.run
+
+    def recording_run(o, **kw):
+        seen.update(obj=o, kw=kw)
+        return real_run(o, **kw)
+
+    pipeline.run = recording_run
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        cli_s = time.perf_counter() - t0
+    finally:
+        pipeline.run = real_run
+    require(rc == 0, f"entry_points: the CLI exited {rc}")
+    direct = dict(seen["kw"], out_dir=str(d / "run"))
+    res = real_run(seen["obj"], **direct)
+    files = lambda p: {f.name for f in p.iterdir()}
+    cli_files, run_files = files(d / "cli"), files(d / "run")
+    extra = cli_files - run_files
+    require(run_files <= cli_files and extra <= {
+        "map_metadata_from_infercnv.txt", "top_dupli.txt", "top_losses.txt",
+        "infercnv.median_filtered.png", "infercnv.median_filtered.observation_groupings.txt",
+        "infercnv.median_filtered.heatmap_thresholds.txt"},
+        f"entry_points: the CLI's files differ from run()'s: {sorted(extra)} / "
+        f"{sorted(run_files - cli_files)}")
+    reports = sorted(f for f in run_files if f.endswith("pred_cnv_regions.dat"))
+    require(reports and all(filecmp.cmp(d / "cli" / f, d / "run" / f, shallow=False)
+                            for f in reports),
+            f"entry_points: the CLI's region reports differ from run()'s: {reports}")
+    # run(sim_method="splatter") at i6 on the same object
+    rs, ws, n = drive_run(obj, d / "splatter", dev, HMM=True, HMM_type="i6",
+                          sim_method="splatter", analysis_mode="subclusters",
+                          tumor_subcluster_partition_method="qnorm", BayesMaxPNormal=0)
+    calls = run_calls(rs, neutral=3)
+    sub = calls["per_subcluster_min"]
+    require(sub["del_chr2"] > 0.7 and sub["amp_chr5"] > 0.7
+            and calls["neutral_obs0_3_refs"] > 0.9,
+            f"entry_points: splatter run: planted CNVs not called: {calls}")
+    # the median filter: the card against the CPU on the direct run's object
+    a, b = res.infercnv_obj.shallow_copy(), res.infercnv_obj.shallow_copy()
+    t0 = time.perf_counter()
+    apply_median_filtering(a, device=dev)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    apply_median_filtering(b, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    require(bool(np.array_equal(a.expr, b.expr)),
+            "entry_points: the median filter differs between the card and the CPU")
+    emit(phase="entry_points", card=smi, cli={"exit": rc, "seconds": cli_s,
+         "files": len(cli_files), "cli_only_files": sorted(extra),
+         "reports_byte_equal": reports, "plots": mpl},
+         splatter={"called": calls, "wall_s": ws, "launches": n},
+         median_filter={"cells": int(a.num_cells), "equal_card_cpu": True,
+                        "card_s": card_s, "cpu_s": cpu_s, "timing": mf_timing})
 
 
 def warm_up(engine, inp) -> float:
@@ -2075,6 +2595,11 @@ def run(dev) -> int:
          cells=cells, cells_per_s=cells / (t2 - t1), called=calls)
     del resid
 
+    # ---- mesh_engine: the main path's engine over two shards of the card
+    torch.cuda.empty_cache()
+    mesh_engine_phase(dev, smi, inp)
+    torch.cuda.empty_cache()
+
     # ---- coordinate smoothing with the i3 HMM ---------------------------
     first_ms = warm_up(cin.engine, cin)
     reset_launches()
@@ -2263,6 +2788,11 @@ def main() -> int:
         import torch
     except ImportError:
         return fail("PyTorch is not installed")
+    if sys.argv[1:2] == ["--worker"]:
+        try:
+            return worker(sys.argv[2:])
+        except Check as e:
+            return fail(str(e))
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is False; this script needs a CUDA card")
     if not (ROOT / "infercnv_tpu_torch" / "csrc").is_dir():

@@ -8,3 +8,16 @@ from infercnv_tpu_torch.io.loaders import (  # noqa: F401
     read_h5ad_counts,
     read_mtx,
 )
+from infercnv_tpu_torch.io.rds import (  # noqa: F401
+    read_rda,
+    read_rds,
+    read_rds_infercnv,
+    save_rds_infercnv,
+    write_rds,
+    write_rds_matrix,
+)
+from infercnv_tpu_torch.io.sharded import (  # noqa: F401
+    global_cell_array,
+    host_cell_slice,
+    load_counts_shard,
+)

@@ -16,7 +16,10 @@ through the same Viterbi kernel with each chromosome a sequence of its own
 length.  ``cnv_mean_sd_trend_fit`` (:72-99) bootstraps with a
 ``torch.Generator`` on the CPU where the reference draws with
 ``jax.random``, so its fits agree with the reference's to the bootstrap's
-spread.  Not ported yet: the ``mesh`` argument (ROADMAP A8).
+spread.  With ``mesh=CellMesh`` the rows of ``viterbi_per_group`` (and so
+of the cell and group drivers) are padded with ones to a multiple of the
+shard count, split over the shards and run on each shard's device, then
+gathered (:331-384).
 
 reference: R/inferCNV_HMM.R — i6 states <-> CNV levels {0, 0.5, 1, 1.5, 2, 3};
 R/inferCNV_i3HMM.R — i3 states {del, neutral, amp}; Viterbi.dthmm.adj
@@ -231,7 +234,8 @@ def _viterbi_perchr(x_bg: np.ndarray, gene_order: GeneOrder, params: HMMParams,
 def viterbi_per_group(x_bg, gene_order, params: HMMParams,
                       group_sds: Optional[np.ndarray] = None,
                       impl: str = "packed",
-                      device: DeviceLike = None) -> np.ndarray:
+                      device: DeviceLike = None,
+                      mesh=None) -> np.ndarray:
     """Viterbi for each row of x_bg ([B, G] per-cell or per-group mean
     expression), per chromosome.  group_sds: optional [B, S] per-row state
     sds, collapsed to their median (:1122); defaults to params.sds for every
@@ -240,8 +244,10 @@ def viterbi_per_group(x_bg, gene_order, params: HMMParams,
     impl='packed' (default): the bin-packed layout the streaming engine also
     runs (ops/viterbi_pack.py: chromosomes first-fit packed into bins with
     chain restarts).  impl='perchr': each chromosome its own padded
-    sequence, the reference's cross-check; both give the same states.  The
-    reference's mesh argument is not ported (ROADMAP A8).
+    sequence, the reference's cross-check; both give the same states.  With
+    a mesh (parallel/stats.CellMesh; not with a device) the packed rows are
+    padded with ones to a multiple of its shard count and each shard runs on
+    its own device; the padded rows are independent sequences, dropped.
 
     Returns the 1-based state matrix [B, G] (int32).  Chromosomes with < 2
     genes get the neutral state (reference Viterbi.dthmm.adj :1104-1107)."""
@@ -249,21 +255,41 @@ def viterbi_per_group(x_bg, gene_order, params: HMMParams,
 
     if impl not in ("packed", "perchr"):
         raise ValueError(f"unknown Viterbi impl {impl!r} (use 'packed' or 'perchr')")
-    dev = resolve_device(device)
+    if mesh is not None and (device is not None or impl != "packed"):
+        raise ValueError("a mesh runs the packed Viterbi on its own devices")
     if torch.is_tensor(x_bg):
         x_bg = x_bg.detach().cpu().numpy()
-    B = x_bg.shape[0]
+    B, G = x_bg.shape
     S = params.num_states
     if group_sds is None:
         group_sds = np.broadcast_to(params.sds[None, :], (B, S))
     sigma_rows = np.median(group_sds, axis=1)  # median collapse (:1122)
+    x = np.asarray(x_bg, np.float32)
+    sig = sigma_rows.astype(np.float32)
+    if mesh is not None:
+        from infercnv_tpu_torch.parallel.stats import (
+            CellSharded,
+            put_cell_sharded,
+            to_host,
+        )
+
+        pad = -B % mesh.n_shards
+        if pad:
+            x = np.concatenate([x, np.ones((pad, G), np.float32)])
+            sig = np.concatenate([sig, np.ones(pad, np.float32)])
+        xs, ss = put_cell_sharded(x, mesh), put_cell_sharded(sig, mesh)
+        layout = get_layout(gene_order)
+        means = np.asarray(params.means, np.float32)
+        states = CellSharded([viterbi_packed(xi, layout, means, si, params.t)
+                              for xi, si in zip(xs.shards, ss.shards)], mesh)
+        return to_host(states).astype(np.int32)[:B]
+    dev = resolve_device(device)
     if impl == "perchr":
-        return _viterbi_perchr(np.asarray(x_bg, np.float32), gene_order,
-                               params, sigma_rows, dev)
+        return _viterbi_perchr(x, gene_order, params, sigma_rows, dev)
     states = viterbi_packed(
-        torch.as_tensor(np.asarray(x_bg, np.float32)).to(dev),
-        get_layout(gene_order), np.asarray(params.means, np.float32),
-        torch.as_tensor(sigma_rows.astype(np.float32)).to(dev), params.t)
+        torch.as_tensor(x).to(dev), get_layout(gene_order),
+        np.asarray(params.means, np.float32), torch.as_tensor(sig).to(dev),
+        params.t)
     return states.cpu().numpy().astype(np.int32)
 
 
@@ -299,12 +325,14 @@ class GroupedStates:
 
 
 def predict_hmm_on_cells(obj, params: HMMParams,
-                         device: DeviceLike = None) -> np.ndarray:
+                         device: DeviceLike = None, mesh=None) -> np.ndarray:
     """Per-cell i6/i3 state matrix [C, G] int8
-    (reference predict_CNV_via_HMM_on_indiv_cells :284-324)."""
+    (reference predict_CNV_via_HMM_on_indiv_cells :284-324); with a mesh
+    the cells shard over it."""
     log_info("predict_hmm_on_cells()")
     return np.asarray(
-        viterbi_per_group(obj.expr, obj.gene_order, params, device=device),
+        viterbi_per_group(obj.expr, obj.gene_order, params, device=device,
+                          mesh=mesh),
         np.int8)
 
 
@@ -316,13 +344,15 @@ def predict_hmm_on_groups(
     levels: Sequence[str] = I6_LEVELS,
     factorized: bool = False,
     device: DeviceLike = None,
+    mesh=None,
 ):
     """Viterbi on per-group mean expression, states written back to every
     member cell (reference predict_CNV_via_HMM_on_tumor_subclusters :345-408
     / ..._whole_tumor_samples :509-567).  With trend_fits, per-group state
     sds follow the cell-count trend (.get_state_emission_params).  The
     group means are numpy means of the f32 rows, as the reference takes
-    them.  factorized=True returns :class:`GroupedStates`."""
+    them.  factorized=True returns :class:`GroupedStates`.  With a mesh the
+    group rows shard over it."""
     log_info(f"predict_hmm_on_groups() over {len(groups)} groups")
     rows, names, idxs = _group_mean_rows(obj.expr, groups)
     if trend_fits is not None:
@@ -333,7 +363,7 @@ def predict_hmm_on_groups(
         group_sds = None
     states_rows = np.asarray(
         viterbi_per_group(rows, obj.gene_order, params, group_sds,
-                          device=device),
+                          device=device, mesh=mesh),
         np.int8)
     neutral = (params.num_states - 1) // 2 + 1
     # cells outside every group (none in practice) keep the neutral row

@@ -7,8 +7,9 @@ the draws taken from one ``torch.Generator`` on the CPU, seeded from
 ``jax.random`` keys.  The spike is small (200 cells a normal group), so a
 run on the card and a run on the CPU build the same hspike.  The draws
 agree with the reference's in distribution only; everything after them is
-the reference's numpy.  ``sim_method="splatter"`` is not ported yet
-(ROADMAP A9).
+the reference's numpy.  ``sim_method="splatter"`` estimates its
+parameters from the normal cells' raw counts and draws through
+sim/splatter.py, as the reference's branches do (:170-179, :239-263).
 
 reference: R/inferCNV_hidden_spike.R (.build_and_add_hspike :3-165,
 .get_hspike_chr_info :170-215).  A fake genome of 11 chromosomes alternates
@@ -45,13 +46,9 @@ HSPIKE_NUM_CELLS = 100
 HSPIKE_GENES_PER_CHR = 400
 
 
-def _refuse_sim(sim_method: str) -> None:
-    if sim_method == "splatter":
-        raise NotImplementedError(
-            "sim_method='splatter' is not ported yet: it needs sim/splatter.py "
-            "(ROADMAP A9)")
-    raise ValueError(f"sim_method {sim_method!r} not supported "
-                     "(use meanvar/simple/splatter)")
+def _unknown_sim(sim_method: str) -> ValueError:
+    return ValueError(f"sim_method {sim_method!r} not supported "
+                      "(use meanvar/simple/splatter)")
 
 
 def hspike_chr_info(num_genes_each: int, num_total: int) -> List[Tuple[str, float, int]]:
@@ -121,8 +118,8 @@ def build_hspike(
         [np.full(c[2], c[1], np.float64) for c in chr_info]
     )
 
-    if sim_method not in ("meanvar", "simple"):
-        _refuse_sim(sim_method)
+    if sim_method not in ("meanvar", "simple", "splatter"):
+        raise _unknown_sim(sim_method)
     gen = torch.Generator().manual_seed(int(seed))
     genes_means_use_idx = torch.randint(
         0, obj.num_genes, (num_genes,), generator=gen).numpy()
@@ -164,7 +161,7 @@ def build_hspike(
                                                HSPIKE_NUM_CELLS, dropout_spline)
             sim_tumor = simulate_meanvar_counts(gen, hspike_gene_means, mv_spline,
                                                 HSPIKE_NUM_CELLS, dropout_spline)
-        else:
+        elif sim_method == "simple":
             if common_dispersion == "auto":
                 # estimated PER normal group (a local, never rebinding the
                 # parameter — else group B would silently reuse group A's
@@ -184,6 +181,15 @@ def build_hspike(
                                               disp, dropout_spline)
             sim_tumor = simulate_simple_counts(gen, hspike_gene_means, HSPIKE_NUM_CELLS,
                                                disp, dropout_spline)
+        else:
+            from infercnv_tpu_torch.sim import splatter
+
+            sp = splatter.estimate_splatter_params(obj.counts[np.asarray(normal_idx)].T)
+            sp.nGenes, sp.nCells = num_genes, HSPIKE_NUM_CELLS
+            sim_norm = splatter.simulate_splatter_counts(
+                gen, sp, gene_means, HSPIKE_NUM_CELLS)
+            sim_tumor = splatter.simulate_splatter_counts(
+                gen, sp, hspike_gene_means, HSPIKE_NUM_CELLS)
 
         norm_name = f"simnorm_cell_{normal_type}"
         tumor_name = f"spike_tumor_cell_{normal_type}"
@@ -240,8 +246,12 @@ def sim_foreground(obj: InferCNV, sim_method: str = "meanvar",
         # reference builds the mean->P(0) table from the NORMAL cells only
         m0, p0 = get_mean_vs_p0_table(expr, [normal_idx])
         dropout_spline = fit_dropout_spline(m0, p0)
+    elif sim_method == "splatter":
+        from infercnv_tpu_torch.sim import splatter
+
+        sp = splatter.estimate_splatter_params(obj.counts[np.asarray(normal_idx)].T)
     else:
-        _refuse_sim(sim_method)
+        raise _unknown_sim(sim_method)
 
     gen = torch.Generator().manual_seed(int(seed) + 219)  # not the hspike's stream
     out = expr.copy()
@@ -252,8 +262,11 @@ def sim_foreground(obj: InferCNV, sim_method: str = "meanvar",
         if sim_method == "meanvar":
             sim = simulate_meanvar_counts(gen, gene_means, mv_spline,
                                           idx.size, dropout_spline)
-        else:
+        elif sim_method == "simple":
             sim = simulate_simple_counts(gen, gene_means, idx.size, 0.1,
                                          dropout_spline)
-        out[idx] = sim.numpy()
+        else:
+            sp.nCells = idx.size
+            sim = splatter.simulate_splatter_counts(gen, sp, gene_means, idx.size)
+        out[idx] = np.asarray(sim)
     obj.expr = np.asarray(normalize_counts_by_seq_depth(out, target))

@@ -1,0 +1,1 @@
+from infercnv_tpu_torch.ops import layout, smoothing, transforms  # noqa: F401

@@ -1,8 +1,8 @@
 """The streaming CNV engine, in PyTorch.
 
-Counterpart of infercnv_tpu/parallel/engine.py (lines 38-549, 552-559),
-without the ``mesh`` path (multi-GPU is not ported yet).  Cells flow through
-in fixed-size chunks; reference statistics are computed once and reused:
+Counterpart of infercnv_tpu/parallel/engine.py (lines 38-565), the
+``mesh`` path and ``make_cell_mesh`` included.  Cells flow through in
+fixed-size chunks; reference statistics are computed once and reused:
 
   1. ``ref_stats``: per-reference-group gene means for both subtraction
      stages and the pooled denoise bounds (one-shot, or streamed in three
@@ -44,12 +44,24 @@ version; the CPU plans its routes with the H100's shared memory
 (``SMEM_OPTIN_BYTES``), so that it takes the card's routes.  Float32
 products stay full f32 (the group sums are torch.matmul outside any kernel,
 as the reference leaves them to XLA).
+
+With ``mesh=CellMesh`` (parallel/stats.py) the chunk steps run shard by
+shard, each on its shard's device with the single-device code (the
+reference's shard_map, :132-183): the engine keeps one single-device engine
+a distinct device (its band weights, Viterbi layout and the card limits the
+routes were planned with), takes cell-sharded chunks (``CellSharded``, or a
+whole chunk it splits) and returns them.  ``subcluster_chunk`` sums each
+chunk's per-shard group sums and counts over the shards in shard order and
+over the processes, then adds them to the accumulator (the reference instead
+divides the accumulator by the shard count inside the psum; the sums agree
+to float32 summation order).  ``ref_stats`` and ``viterbi_group_means`` run
+on the mesh's first device, as the reference runs them unsharded.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -77,6 +89,12 @@ from infercnv_tpu_torch.ops.smoothing import (
     smooth_route,
 )
 from infercnv_tpu_torch.ops.viterbi_pack import PackedLayout, viterbi_packed
+from infercnv_tpu_torch.parallel.stats import (
+    CellMesh,
+    CellSharded,
+    put_cell_sharded,
+    sum_over_mesh,
+)
 
 _OUT_DTYPES = {"float32": torch.float32, "float16": torch.float16,
                "bfloat16": torch.bfloat16}
@@ -118,16 +136,21 @@ class EngineConfig:
 
 
 class CnvEngine:
-    """Smoothing + HMM pass for a fixed genome and HMM, on one device."""
+    """Smoothing + HMM pass for a fixed genome and HMM, on one device or
+    over the shards of a cell mesh (``device`` or ``mesh``, not both)."""
 
     def __init__(self, gene_order: GeneOrder, hmm: HMMParams,
                  config: EngineConfig = EngineConfig(),
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 mesh: Optional[CellMesh] = None):
         if config.matmul_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unsupported matmul_dtype {config.matmul_dtype}")
         if config.out_dtype not in _OUT_DTYPES:
             raise ValueError(f"unsupported out_dtype {config.out_dtype}")
-        self.device = resolve_device(device)
+        if mesh is not None and device is not None:
+            raise ValueError("pass a device or a mesh, not both")
+        self.mesh = mesh
+        self.device = resolve_device(mesh.devices[0] if mesh is not None else device)
         self.gene_order = gene_order
         self.config = config
         self.hmm = hmm
@@ -164,6 +187,17 @@ class CnvEngine:
         self._layout = PackedLayout.from_gene_order(gene_order)
         self._means = np.asarray(hmm.means, np.float32)
         self._sigma = float(np.float32(np.median(hmm.sds)))
+        #: under a mesh, the single-device engine of each of its distinct
+        #: devices (the shards' steps run there; this engine keeps ref_stats
+        #: and viterbi_group_means on the first device)
+        self._by_device: Dict[torch.device, "CnvEngine"] = {}
+        if mesh is not None:
+            for d in mesh.distinct_devices():
+                self._by_device[d] = CnvEngine(gene_order, hmm, config, device=d)
+            routes = {(e.residual_route, e.smooth_route)
+                      for e in self._by_device.values()}
+            if len(routes) > 1:
+                raise ValueError(f"the mesh's devices plan different routes: {routes}")
 
     # ------------------------------------------------------------------
     # numerics
@@ -329,20 +363,49 @@ class CnvEngine:
         return self._ref_stats_oneshot(counts, self._f32(norm_factor),
                                        self._f32(group_onehot))
 
+    def engine_on(self, device: torch.device) -> "CnvEngine":
+        """The single-device engine of one of the mesh's devices (this
+        engine itself without a mesh)."""
+        if self.mesh is None:
+            return self
+        return self._by_device[torch.device(device)]
+
+    def here(self, *tensors):
+        """The tensors on this engine's device (no copy when they are)."""
+        return [t.to(self.device) if torch.is_tensor(t) else t for t in tensors]
+
+    def _shards(self, x) -> CellSharded:
+        return put_cell_sharded(x if torch.is_tensor(x) or isinstance(x, CellSharded)
+                                else np.asarray(x), self.mesh)
+
     def transform_chunk(self, counts, norm_factor, ref_means_log,
-                        ref_means_resid) -> torch.Tensor:
-        """Pre-denoise residual of one cell chunk, in config.out_dtype."""
+                        ref_means_resid):
+        """Pre-denoise residual of one cell chunk, in config.out_dtype (a
+        CellSharded under a mesh)."""
+        if self.mesh is not None:
+            return self._shards(counts).map(lambda s: self.engine_on(s.device)
+                                            .transform_chunk(s, norm_factor,
+                                                             ref_means_log,
+                                                             ref_means_resid))
+        ml, mr = self.here(ref_means_log, ref_means_resid)
         return self._residual(_counts_cast(counts, self.device), norm_factor,
-                              ref_means_log, ref_means_resid,
-                              _OUT_DTYPES[self.config.out_dtype])
+                              ml, mr, _OUT_DTYPES[self.config.out_dtype])
 
     def full_chunk(self, counts, norm_factor, ref_means_log, ref_means_resid,
                    noise_bounds=None):
         """Residual + per-cell HMM states of one chunk (analysis_mode='cells').
         The Viterbi reads the pre-denoise residual; the returned residual is
-        denoised when config.denoise and noise_bounds are given."""
+        denoised when config.denoise and noise_bounds are given.  Under a
+        mesh both are CellSharded."""
+        if self.mesh is not None:
+            outs = [self.engine_on(s.device).full_chunk(
+                s, norm_factor, ref_means_log, ref_means_resid, noise_bounds)
+                for s in self._shards(counts).shards]
+            return (CellSharded([o[0] for o in outs], self.mesh),
+                    CellSharded([o[1] for o in outs], self.mesh))
         resid, final = self._residual_and_final(
-            counts, norm_factor, ref_means_log, ref_means_resid, noise_bounds)
+            counts, norm_factor, *self.here(ref_means_log, ref_means_resid,
+                                            noise_bounds))
         return final, self._viterbi(resid)
 
     def subcluster_chunk(self, counts, norm_factor, ref_means_log,
@@ -351,15 +414,29 @@ class CnvEngine:
         """Default-configuration streaming step (analysis_mode='subclusters'):
         returns (final resid [C, G] (denoised per config), accumulated
         subcluster sums [K, G], accumulated subcluster counts [K]).  Pass the
-        previous call's (sums, counts) back via ``acc``."""
-        onehot = self._f32(group_onehot)
+        previous call's (sums, counts) back via ``acc``.  Under a mesh the
+        residual is CellSharded and group_onehot is the chunk's [K, C]
+        membership, or a CellSharded of its transpose; the sums and counts
+        are summed over the mesh and lie on its first device."""
+        if self.mesh is None:
+            resid, final = self._residual_and_final(
+                counts, norm_factor, *self.here(ref_means_log, ref_means_resid,
+                                                noise_bounds))
+            onehot = self._f32(group_onehot)
+            sums, counts_k = onehot @ resid, onehot.sum(dim=1)
+        else:
+            xs = self._shards(counts)
+            ohs = (group_onehot if isinstance(group_onehot, CellSharded)
+                   else self._shards(_host_f32(group_onehot).T))
+            outs = [self.engine_on(s.device).subcluster_chunk(
+                s, norm_factor, ref_means_log, ref_means_resid, noise_bounds,
+                o.t()) for s, o in zip(xs.shards, ohs.shards)]
+            final = CellSharded([o[0] for o in outs], self.mesh)
+            sums = sum_over_mesh([o[1] for o in outs], self.mesh).to(self.device)
+            counts_k = sum_over_mesh([o[2] for o in outs], self.mesh).to(self.device)
         if acc is None:
-            K, G = onehot.shape[0], self.gene_order.num_genes
-            acc = (torch.zeros((K, G), dtype=torch.float32, device=self.device),
-                   torch.zeros((K,), dtype=torch.float32, device=self.device))
-        resid, final = self._residual_and_final(
-            counts, norm_factor, ref_means_log, ref_means_resid, noise_bounds)
-        return final, acc[0] + onehot @ resid, acc[1] + onehot.sum(dim=1)
+            return final, sums, counts_k
+        return final, acc[0] + sums, acc[1] + counts_k
 
     def viterbi_group_means(self, group_means, n_cells_per_group=None,
                             trend_fits=None, levels=None) -> torch.Tensor:
@@ -399,3 +476,20 @@ def _counts_cast(counts, device) -> torch.Tensor:
     if t.dtype not in _NARROW_COUNTS:
         t = t.to(torch.float32)
     return t.to(device).contiguous()
+
+
+def make_cell_mesh(n_devices: Optional[int] = None,
+                   device: DeviceLike = None) -> CellMesh:
+    """A 1-D cell-axis mesh of this process's first ``n_devices`` CUDA
+    devices (all of them by default), as the reference takes the first n of
+    jax.devices() (:562-565); with ``device="cpu"``, ``n_devices`` shards on
+    the CPU.  A run over several processes builds its CellMesh with the
+    caller's process group instead."""
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return CellMesh([dev] * (n_devices or 1))
+    have = torch.cuda.device_count()
+    n = n_devices or have
+    if n > have:
+        raise ValueError(f"n_devices={n} but only {have} CUDA devices are visible")
+    return CellMesh([torch.device("cuda", i) for i in range(n)])

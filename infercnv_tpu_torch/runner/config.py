@@ -2,8 +2,7 @@
 run() (R/inferCNV_ops.R:242-348); names and defaults are API.
 
 Copied from infercnv_tpu/runner/config.py (``RunConfig`` and ``validate``,
-all of it).  The port's run() refuses the options whose modules it does not
-have yet (runner/pipeline.py ``_refuse_unported``).
+all of it).
 """
 
 from __future__ import annotations
@@ -143,8 +142,10 @@ class RunConfig:
 
     # framework-specific
     seed: int = 12345
-    # scale-out over a cell-axis mesh of devices (not ported yet, ROADMAP
-    # A8: the port's run() refuses both fields)
+    # scale-out: shard the engine's chunks and the step-17 Viterbi over a
+    # 1-D cell-axis mesh (parallel/stats.CellMesh).  n_devices builds the
+    # mesh from the run's device type; mesh accepts a prebuilt CellMesh.
+    # Neither field takes part in checkpoint-resume matching.
     n_devices: Optional[int] = None
     mesh: object = None
     #: download dtype of the engine's residual chunks ("float16" halves the

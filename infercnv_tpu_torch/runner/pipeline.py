@@ -46,9 +46,11 @@ gene filter, the region reports, denoise) are the reference's numpy,
 dtypes included.  ``run(..., device="cpu")`` runs every kernel's plain
 version; ``device=None`` runs on CUDA and raises without it.
 
-Options whose modules are not ported yet are refused before any work with a
-NotImplementedError naming the ROADMAP item (``_refuse_unported``): the
-device mesh (A8) and the splatter simulation (A9).
+``n_devices`` / ``mesh`` shard the cell axis of steps 4-14 (the engine's
+chunks, ``_stream_cuda``'s lanes, one a shard) and of step 17's Viterbi
+over a ``CellMesh`` (parallel/stats.py), on one process or on several
+under ``torch.distributed``; the depth factor is then the sharded median.
+Every option of the reference's run() runs.
 """
 
 from __future__ import annotations
@@ -184,20 +186,6 @@ def _engine_fast_ok(cfg: RunConfig, skip_past: int) -> bool:
             "outlier pruning / auto threshold / plot_steps / up_to_step<15 "
             "are engine-incompatible)")
     return ok
-
-
-def _refuse_unported(cfg: RunConfig) -> None:
-    """Raise NotImplementedError for the first option whose module the port
-    does not have yet, before run() does any work."""
-    def refuse(option: str, item: str, what: str):
-        raise NotImplementedError(
-            f"{option} is not ported yet: {what} (ROADMAP {item})")
-
-    if cfg.n_devices or cfg.mesh is not None:
-        refuse("n_devices / mesh", "A8", "more than one device")
-    if (cfg.sim_method == "splatter" and cfg.up_to_step >= 3
-            and ((cfg.HMM and cfg.HMM_type == "i6") or cfg.sim_foreground)):
-        refuse("sim_method='splatter'", "A9", "the splatter simulation")
 
 
 def _plotted(timer: StepTimer, step: str, what: str, fn, *args, **kwargs) -> None:
@@ -352,105 +340,176 @@ def _remove_genes_at_chr_ends(obj: InferCNV, window_length: int) -> None:
         _remove_genes_at_chr_ends(obj.hspike, window_length)
 
 
-def _norm_factor(obj: InferCNV) -> float:
+def _resolve_mesh(cfg: RunConfig, dev: torch.device):
+    """The cell-axis mesh of the sharded steps, or None for one device
+    (reference :185-194): cfg.mesh as given, or the first cfg.n_devices
+    devices of the run's device type."""
+    if cfg.mesh is not None:
+        mesh = cfg.mesh
+    elif cfg.n_devices:
+        from infercnv_tpu_torch.parallel.engine import make_cell_mesh
+
+        mesh = make_cell_mesh(cfg.n_devices,
+                              device="cpu" if dev.type == "cpu" else None)
+    else:
+        return None
+    if mesh.devices[0].type != dev.type:
+        raise ValueError(f"the mesh's devices ({mesh.devices[0].type}) and the "
+                         f"run's device ({dev}) differ")
+    return mesh
+
+
+def _norm_factor(obj: InferCNV, mesh=None) -> float:
     """Depth-norm factor = median library size (inferCNV_ops.R:3095), from
-    the reference's host float32 sums (:197-212)."""
-    return float(np.median(obj.expr.sum(axis=1)))
+    the reference's host float32 sums; under a mesh whose shard count
+    divides the cells, the sharded exact median of them (:197-212), the
+    same value."""
+    libsizes = obj.expr.sum(axis=1)
+    if mesh is not None and libsizes.size % mesh.n_shards == 0:
+        from infercnv_tpu_torch.parallel.stats import sharded_median, to_host
+
+        return float(to_host(sharded_median(libsizes.astype(np.float32), mesh)))
+    return float(np.median(libsizes))
 
 
-def _stream_cpu(engine, src: np.ndarray, out: np.ndarray, chunk: int,
-                nf: float, ml, mr, out_dtype: torch.dtype,
-                keep: Optional[list]) -> Dict[str, float]:
+def _stream_plain(engine, src: np.ndarray, out: np.ndarray, chunk: int,
+                  nf: float, ml, mr, out_dtype: torch.dtype,
+                  keep: Optional[list], mesh=None) -> Dict[str, float]:
+    """The chunks one after another: on the CPU, and under a mesh of
+    several processes (each chunk's tail padded with ones to the mesh,
+    split over its shards and gathered back, as the reference streams,
+    :296-327)."""
     for b in range(0, src.shape[0], chunk):
-        r = engine.transform_chunk(src[b:b + chunk], nf, ml, mr)
-        out[b:b + r.shape[0]] = r.to(out_dtype).float().numpy()
+        block = src[b:b + chunk]
+        nb = block.shape[0]
+        if mesh is not None:
+            from infercnv_tpu_torch.parallel.stats import to_host
+
+            pad = -nb % mesh.n_shards
+            if pad:  # rows are independent: padding never mixes into cells
+                block = np.concatenate(
+                    [block, np.ones((pad, block.shape[1]), block.dtype)])
+            r = torch.from_numpy(to_host(engine.transform_chunk(block, nf, ml, mr)))
+        else:
+            r = engine.transform_chunk(block, nf, ml, mr)
+        out[b:b + nb] = r[:nb].to(out_dtype).float().cpu().numpy()
         if keep is not None:
-            keep.append((b, r.shape[0], r))
+            keep.append((b, nb, r))
     return {}
+
+
+class _Lane:
+    """One shard's path through the card in _stream_cuda: its device's
+    engine and reference statistics, two pinned staging buffers each way,
+    two device input buffers, and its own copy streams."""
+
+    def __init__(self, engine, ml, mr, rows: int, G: int, odt: torch.dtype):
+        dev = engine.device
+        self.engine = engine
+        self.ml, self.mr = engine.here(ml, mr)
+        self.comp = torch.cuda.current_stream(dev)
+        self.h2d, self.d2h = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+        self.pin_in = [torch.empty((rows, G), dtype=torch.float32, pin_memory=True)
+                       for _ in range(2)]
+        self.pin_out = [torch.empty((rows, G), dtype=odt, pin_memory=True)
+                        for _ in range(2)]
+        self.dev_in = [torch.empty((rows, G), dtype=torch.float32, device=dev)
+                       for _ in range(2)]
+        self.uploaded = [None, None]   # H2D of a slot's pinned buffer done
+        self.consumed = [None, None]   # the kernels done reading a slot's buffer
 
 
 def _stream_cuda(engine, src: np.ndarray, out: np.ndarray, chunk: int,
                  nf: float, ml, mr, out_dtype: torch.dtype,
-                 keep: Optional[list]) -> Dict[str, float]:
+                 keep: Optional[list], mesh=None) -> Dict[str, float]:
     """Stream the chunks through the card with the copies overlapped: each
     chunk is staged into one of two pinned host buffers, uploaded on a copy
     stream, transformed on the current stream and downloaded into one of
     two pinned buffers on a second copy stream, so the copies of chunk i+1
     and i-1 run beside chunk i's kernels (the reference double-buffers,
-    :296-327).  The download is in out_dtype.  With `keep` (a list), each
-    chunk's residual stays on the card as (first row, rows, tensor) for
-    step 15.  Returns the summed seconds of each part (CUDA events for the
-    card's, the host clock for the pinned staging)."""
-    dev = engine.device
+    :296-327).  The download is in out_dtype.  Under a mesh of this
+    process's devices each shard is a lane of its own (_Lane): its run of
+    every chunk's rows (the tail chunk padded with ones to the mesh) goes
+    to its own device through its own buffers and streams, so two shards
+    on one card share nothing but the card.  With `keep` (a list; one
+    device only), each chunk's residual stays on the card as (first row,
+    rows, tensor) for step 15.  Returns the summed seconds of each part
+    (CUDA events for the card's, summed over the lanes; the host clock for
+    the pinned staging)."""
     C, G = src.shape
     odt = out_dtype
-    rows = min(chunk, C)
-    comp = torch.cuda.current_stream(dev)
-    h2d, d2h = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
-    pin_in = [torch.empty((rows, G), dtype=torch.float32, pin_memory=True)
-              for _ in range(2)]
-    pin_out = [torch.empty((rows, G), dtype=odt, pin_memory=True)
-               for _ in range(2)]
-    dev_in = [torch.empty((rows, G), dtype=torch.float32, device=dev)
-              for _ in range(2)]
+    devices = mesh.devices if mesh is not None else (engine.device,)
+    n = len(devices)
+    lane_rows = -(-min(chunk, C) // n)
+    lanes = [_Lane(engine.engine_on(d), ml, mr, lane_rows, G, odt)
+             for d in devices]
 
     def event():
         return torch.cuda.Event(enable_timing=True)
 
-    uploaded = [None, None]   # H2D of a slot's pinned buffer done
-    consumed = [None, None]   # the kernels done reading a slot's device buffer
     spans = []                # (name, start event, end event)
     host = {"stage": 0.0, "drain": 0.0}
-    pending = []              # (slot, first row, rows, D2H done event)
+    pending = []              # [(lane, slot, first row, real rows, D2H done)]
 
-    def drain(slot, b, nb, done):
-        done.synchronize()
-        t0 = time.perf_counter()
-        torch.from_numpy(out[b:b + nb]).copy_(pin_out[slot][:nb])
-        host["drain"] += time.perf_counter() - t0
+    def drain(parts):
+        for lane, slot, lo, real, done in parts:
+            done.synchronize()
+            t0 = time.perf_counter()
+            torch.from_numpy(out[lo:lo + real]).copy_(lane.pin_out[slot][:real])
+            host["drain"] += time.perf_counter() - t0
 
     for i, b in enumerate(range(0, C, chunk)):
         s = i % 2
         nb = min(chunk, C - b)
-        if uploaded[s] is not None:
-            uploaded[s].synchronize()      # chunk i-2's upload left pin_in[s]
-        t0 = time.perf_counter()
-        pin_in[s][:nb].copy_(torch.from_numpy(src[b:b + nb]))
-        host["stage"] += time.perf_counter() - t0
-        with torch.cuda.stream(h2d):
-            if consumed[s] is not None:
-                h2d.wait_event(consumed[s])
+        lr = -(-nb // n)          # each lane's rows, the tail padded
+        parts = []
+        for li, lane in enumerate(lanes):
+            lo = b + li * lr
+            real = max(0, min(lr, b + nb - lo))
+            if lane.uploaded[s] is not None:
+                lane.uploaded[s].synchronize()   # chunk i-2's upload left pin_in[s]
+            t0 = time.perf_counter()
+            lane.pin_in[s][:real].copy_(torch.from_numpy(src[lo:lo + real]))
+            lane.pin_in[s][real:lr].fill_(1.0)
+            host["stage"] += time.perf_counter() - t0
+            with torch.cuda.stream(lane.h2d):
+                if lane.consumed[s] is not None:
+                    lane.h2d.wait_event(lane.consumed[s])
+                a = event()
+                a.record(lane.h2d)
+                lane.dev_in[s][:lr].copy_(lane.pin_in[s][:lr], non_blocking=True)
+                lane.uploaded[s] = event()
+                lane.uploaded[s].record(lane.h2d)
+            spans.append(("h2d", a, lane.uploaded[s]))
+            lane.comp.wait_event(lane.uploaded[s])
             a = event()
-            a.record(h2d)
-            dev_in[s][:nb].copy_(pin_in[s][:nb], non_blocking=True)
-            uploaded[s] = event()
-            uploaded[s].record(h2d)
-        spans.append(("h2d", a, uploaded[s]))
-        comp.wait_event(uploaded[s])
-        a = event()
-        a.record(comp)
-        r = engine.transform_chunk(dev_in[s][:nb], nf, ml, mr)
-        consumed[s] = event()
-        consumed[s].record(comp)
-        spans.append(("kernels", a, consumed[s]))
-        with torch.cuda.stream(d2h):
-            d2h.wait_event(consumed[s])
-            a = event()
-            a.record(d2h)
-            pin_out[s][:nb].copy_(r.to(odt), non_blocking=True)
-            r.record_stream(d2h)
-            done = event()
-            done.record(d2h)
-        spans.append(("d2h", a, done))
-        if keep is not None:
-            keep.append((b, nb, r))
-        del r
+            a.record(lane.comp)
+            with torch.cuda.device(lane.engine.device):
+                r = lane.engine.transform_chunk(lane.dev_in[s][:lr], nf,
+                                                lane.ml, lane.mr)
+            lane.consumed[s] = event()
+            lane.consumed[s].record(lane.comp)
+            spans.append(("kernels", a, lane.consumed[s]))
+            with torch.cuda.stream(lane.d2h):
+                lane.d2h.wait_event(lane.consumed[s])
+                a = event()
+                a.record(lane.d2h)
+                lane.pin_out[s][:lr].copy_(r.to(odt), non_blocking=True)
+                r.record_stream(lane.d2h)
+                done = event()
+                done.record(lane.d2h)
+            spans.append(("d2h", a, done))
+            if keep is not None:
+                keep.append((b, nb, r))
+            del r
+            parts.append((lane, s, lo, real, done))
         if pending:
-            drain(*pending.pop(0))
-        pending.append((s, b, nb, done))
+            drain(pending.pop(0))
+        pending.append(parts)
     for p in pending:
-        drain(*p)
-    torch.cuda.synchronize(dev)
+        drain(p)
+    for d in dict.fromkeys(devices):
+        torch.cuda.synchronize(d)
     secs = {"h2d": 0.0, "kernels": 0.0, "d2h": 0.0}
     for name, a, e in spans:
         secs[name] += a.elapsed_time(e) / 1e3
@@ -476,7 +535,7 @@ def _device_probe(engine, probe_src: np.ndarray, nf: float, ml, mr,
 
 
 def _run_engine_residual(obj: InferCNV, cfg: RunConfig, timer: StepTimer,
-                         dev: torch.device) -> Optional[list]:
+                         dev: torch.device, mesh=None) -> Optional[list]:
     """STEPS 4-14 as the fused CnvEngine transform (log -> bounds subtract
     -> clamp -> smooth -> median-center -> subtract -> unlog), streamed in
     cell chunks (reference :215-371).  obj.expr holds the raw counts (the
@@ -485,11 +544,16 @@ def _run_engine_residual(obj: InferCNV, cfg: RunConfig, timer: StepTimer,
     When step 15 will run the Leiden partition on the whole-genome rows and
     the residual fits (the reference's rule, :237-242), the chunks' float32
     residuals stay on the device and are returned as [(first row, rows,
-    tensor)] for step 15; otherwise returns None."""
+    tensor)] for step 15; otherwise returns None.  Under a mesh the chunks
+    split over its shards (a chunk size that divides by the shard count,
+    the tail padded with ones), the depth factor is the sharded median, and
+    nothing stays on the device (:227-335)."""
     from infercnv_tpu_torch.models.hmm import HMMParams
     from infercnv_tpu_torch.parallel.engine import CnvEngine, EngineConfig
 
-    log_info("STEPS 04-14: fused engine transform (use_engine fast path)")
+    n_dev = mesh.n_shards if mesh is not None else 1
+    log_info("STEPS 04-14: fused engine transform (use_engine fast path"
+             + (f", {n_dev}-shard cell mesh)" if mesh is not None else ")"))
     with timer.step("04-14_engine_transform"):
         # retaining the residual on the device costs ~2x C*G*4 bytes
         # (chunks + step 15's gene-filtered copy); the same guard as the
@@ -499,6 +563,7 @@ def _run_engine_residual(obj: InferCNV, cfg: RunConfig, timer: StepTimer,
         keep_device = (cfg.analysis_mode == "subclusters"
                        and cfg.tumor_subcluster_partition_method == "leiden"
                        and not cfg.per_chr_hmm_subclusters
+                       and mesh is None
                        and resid_bytes < 11e9)
         tdtype = cfg.engine_transfer_dtype
         narrow = tdtype in ("float16", "bfloat16")
@@ -516,7 +581,9 @@ def _run_engine_residual(obj: InferCNV, cfg: RunConfig, timer: StepTimer,
         )
         # transform-only use: HMM params are placeholders
         params = HMMParams(means=np.arange(1.0, 7.0), sds=np.ones(6), t=1e-6)
-        engine = CnvEngine(obj.gene_order, params, ecfg, device=dev)
+        engine = (CnvEngine(obj.gene_order, params, ecfg, mesh=mesh)
+                  if mesh is not None
+                  else CnvEngine(obj.gene_order, params, ecfg, device=dev))
         if obj.has_reference_cells():
             groups = [np.asarray(v) for v in obj.ref_groups.values()]
         else:
@@ -526,10 +593,11 @@ def _run_engine_residual(obj: InferCNV, cfg: RunConfig, timer: StepTimer,
         pos = {int(c): i for i, c in enumerate(ref_idx)}
         for k, g in enumerate(groups):
             onehot[k, [pos[int(c)] for c in g]] = 1.0
-        norm_factor = _norm_factor(obj)
+        norm_factor = _norm_factor(obj, mesh)
         ml, mr, _ = engine.ref_stats(obj.expr[ref_idx], norm_factor, onehot)
         C = obj.num_cells
-        chunk = cfg.engine_chunk_cells or 16384
+        base_chunk = cfg.engine_chunk_cells or 16384
+        chunk = max(base_chunk // n_dev, 1) * n_dev  # divisible by the mesh
         probe_src = obj.expr[:chunk]
         out_bytes = obj.num_cells * obj.num_genes * 4
         if (cfg.residual_memmap_gb is not None
@@ -544,16 +612,19 @@ def _run_engine_residual(obj: InferCNV, cfg: RunConfig, timer: StepTimer,
         if narrow:
             log_info(f"-engine chunk downloads as {tdtype}"
                      + (" (kernel-direct)" if kernel_out == tdtype else ""))
-        stream = _stream_cuda if dev.type == "cuda" else _stream_cpu
+        # the overlapped stream takes this process's shards; a mesh over
+        # several processes gathers every chunk from them
+        overlapped = dev.type == "cuda" and (mesh is None or mesh.group is None)
+        stream = _stream_cuda if overlapped else _stream_plain
         device_chunks = [] if keep_device else None
         parts = stream(engine, obj.expr, out, chunk, norm_factor, ml, mr,
                        getattr(torch, tdtype) if narrow else torch.float32,
-                       device_chunks)
+                       device_chunks, mesh)
         obj.expr = out
     for name, sec in parts.items():
         timer.records.append({"step": f"04-14_engine_transform.{name}",
                               "seconds": round(sec, 4)})
-    if C >= 50_000 and dev.type == "cuda":
+    if C >= 50_000 and dev.type == "cuda" and mesh is None:
         n_chunks = -(-C // chunk)
         dev_s = _device_probe(engine, probe_src, norm_factor, ml, mr, n_chunks)
         timer.records.append({"step": "04-14_engine_transform.device",
@@ -596,12 +667,13 @@ def _clear_noise(obj: InferCNV, cfg: RunConfig) -> None:
 def run(obj: InferCNV, out_dir: Optional[str] = None,
         device: DeviceLike = None, **kwargs) -> RunResult:
     """Run the pipeline.  kwargs mirror the reference run() arguments (see
-    RunConfig); options not ported yet raise NotImplementedError before any
-    work.  Returns a RunResult."""
+    RunConfig).  ``n_devices`` / ``mesh`` (a parallel.stats.CellMesh of
+    ``device``'s type) shard steps 4-14 and step 17's Viterbi over the cell
+    axis; the rest runs on ``device``.  Returns a RunResult."""
     cfg = RunConfig(out_dir=out_dir, **kwargs)
     cfg.validate()
-    _refuse_unported(cfg)
     dev = resolve_device(device)
+    mesh = _resolve_mesh(cfg, dev)
     if cfg.debug:
         set_debug(True)
     if cfg.out_dir is None:
@@ -754,7 +826,7 @@ def run(obj: InferCNV, out_dir: Optional[str] = None,
     # with save_rds only the step-14 checkpoint is written (:629-643)
     device_chunks = None
     if _engine_fast_ok(cfg, skip_past) and skip_past < 14:
-        device_chunks = _run_engine_residual(obj, cfg, timer, dev)
+        device_chunks = _run_engine_residual(obj, cfg, timer, dev, mesh)
         if (not cfg.save_rds and not cfg.save_final_rds
                 and obj.counts is not None
                 and getattr(obj.counts, "nbytes", 0) > 4_000_000_000):
@@ -966,6 +1038,8 @@ def run(obj: InferCNV, out_dir: Optional[str] = None,
         result.hmm_gene_order = obj.gene_order
     elif cfg.HMM:
         log_info("STEP 17: HMM-based CNV prediction")
+        # the Viterbi's rows shard over the mesh (reference :878-922)
+        on_mesh = dict(mesh=mesh) if mesh is not None else dict(device=dev)
         with timer.step("17_hmm"):
             if cfg.HMM_type == "i6":
                 cnv_mean_sd = hmm_mod.get_spike_dists(obj.hspike)
@@ -998,16 +1072,16 @@ def run(obj: InferCNV, out_dir: Optional[str] = None,
                         groups = {**obj.obs_groups, **obj.ref_groups}
                     hmm_states = hmm_mod.predict_hmm_on_groups(
                         obj, params, groups, trend_fits, factorized=True,
-                        device=dev)
+                        **on_mesh)
             elif cfg.analysis_mode == "cells":
-                hmm_states = hmm_mod.predict_hmm_on_cells(obj, params, device=dev)
+                hmm_states = hmm_mod.predict_hmm_on_cells(obj, params, **on_mesh)
             else:  # samples
                 if cfg.cluster_by_groups:
                     groups = {**obj.obs_groups, **obj.ref_groups}
                 else:
                     groups = {"all_observations": obj.all_obs_idx(), **obj.ref_groups}
                 hmm_states = hmm_mod.predict_hmm_on_groups(
-                    obj, params, groups, trend_fits, factorized=True, device=dev)
+                    obj, params, groups, trend_fits, factorized=True, **on_mesh)
 
             result.region_reports = generate_cnv_region_reports(
                 obj, hmm_states,

@@ -249,21 +249,22 @@ def estimate_common_dispersion(counts_gc: np.ndarray,
     return float(np.exp((a + b) / 2))
 
 
-def standard_gamma(gen: torch.Generator, shape: float, size) -> torch.Tensor:
+def standard_gamma(gen: torch.Generator, shape, size) -> torch.Tensor:
     """Gamma(shape, 1) draws of the given size (float32) from the
     generator's normals and uniforms: Marsaglia and Tsang's squeeze method
     for shape >= 1, rejected draws redrawn until every entry is accepted;
-    for shape < 1 a Gamma(shape + 1) draw times U^(1/shape)."""
+    for shape < 1 a Gamma(shape + 1) draw times U^(1/shape).  ``shape`` is
+    a number, or a tensor of ``size`` (one shape an entry)."""
     dev = gen.device
-    a = float(shape)
-    boost = a < 1.0
-    if boost:
-        a += 1.0
-    d = a - 1.0 / 3.0
-    c = 1.0 / np.sqrt(9.0 * d)
-    out = torch.empty(size, dtype=torch.float32, device=dev).view(-1)
+    alpha = torch.as_tensor(shape, dtype=torch.float32, device=dev).expand(size).reshape(-1)
+    small = alpha < 1.0
+    a = torch.where(small, alpha + 1.0, alpha)
+    d_all = a - 1.0 / 3.0
+    c_all = 1.0 / torch.sqrt(9.0 * d_all)
+    out = torch.empty(alpha.shape, dtype=torch.float32, device=dev)
     todo = torch.arange(out.numel(), device=dev)
     while todo.numel():
+        d, c = d_all[todo], c_all[todo]
         x = torch.randn(todo.numel(), generator=gen, device=dev)
         u = torch.rand(todo.numel(), generator=gen, device=dev)
         v = (1.0 + c * x) ** 3
@@ -271,11 +272,10 @@ def standard_gamma(gen: torch.Generator, shape: float, size) -> torch.Tensor:
                         + d * torch.log(torch.clamp(v, min=1e-30)))
         out[todo[ok]] = (d * v)[ok]
         todo = todo[~ok]
-    out = out.view(size)
-    if boost:
-        u = torch.rand(size, generator=gen, device=dev)
-        out = out * u ** (1.0 / float(shape))
-    return out
+    if bool(small.any()):
+        u = torch.rand(out.shape, generator=gen, device=dev)
+        out = torch.where(small, out * u ** (1.0 / alpha), out)
+    return out.view(size)
 
 
 def simulate_simple_counts(

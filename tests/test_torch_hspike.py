@@ -155,8 +155,16 @@ def test_hspike_structure_equal(obj, sim_method):
 
 
 def test_hspike_refuses_splatter(obj):
-    with pytest.raises(NotImplementedError, match="A9"):
-        ths.build_hspike(infercnv_from_numpy(vars(obj)), sim_method="splatter")
+    """Splatter was refused until it was ported (ROADMAP A9): it builds the
+    reference's hspike layout now (tests/test_torch_splatter.py holds its
+    draws), and an unknown sim_method is refused."""
+    t = ths.build_hspike(infercnv_from_numpy(vars(obj)), sim_method="splatter", seed=5)
+    j = jhs.build_hspike(obj, sim_method="meanvar", seed=5)
+    assert t.gene_order.names == j.gene_order.names
+    assert t.cell_names == j.cell_names and t.expr.shape == j.expr.shape
+    assert np.isfinite(t.expr).all()
+    with pytest.raises(ValueError, match="nope"):
+        ths.build_hspike(infercnv_from_numpy(vars(obj)), sim_method="nope")
 
 
 def test_spike_dists_equal_on_the_reference_hspike(spike):

@@ -49,12 +49,16 @@ def test_every_module_imports_without_jax():
             "infercnv_tpu_torch.viz.bayes_plots", "infercnv_tpu_torch.viz.heatmap",
             "infercnv_tpu_torch.viz.dendro", "infercnv_tpu_torch.viz.subclusters",
             "infercnv_tpu_torch.viz.per_group", "infercnv_tpu_torch.report.newick",
-            "infercnv_tpu_torch.report.seurat_export"} <= set(mods)
+            "infercnv_tpu_torch.report.seurat_export",
+            "infercnv_tpu_torch.parallel.stats", "infercnv_tpu_torch.io.sharded",
+            "infercnv_tpu_torch.sim.splatter", "infercnv_tpu_torch.ops.median_filter",
+            "infercnv_tpu_torch.data", "infercnv_tpu_torch.cli"} <= set(mods)
     code = ("import sys\n"
             + "".join(f"sys.modules[{m!r}] = None\n" for m in FORBIDDEN)
             + "import importlib\n"
             + "".join(f"importlib.import_module({m!r})\n" for m in mods)
             + "assert sys.modules['infercnv_tpu_torch.native']._lib is None\n"
+            + "assert sys.modules['infercnv_tpu_torch.ops._build']._library is None\n"
             + "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
@@ -144,3 +148,16 @@ def test_sources_digest_covers_every_kernel_source():
             "band_smooth.cuh", "smooth_general.cu", "median.cu",
             "radix_select.cuh", "common.cu"} <= names
     assert len(_build.sources_digest()) == 64
+
+
+def test_nothing_is_refused_as_unported():
+    """run() and the hspike take every option of the reference's: the mesh
+    (n_devices, mesh) and splatter are no longer refused."""
+    import infercnv_tpu_torch.models.hspike as ths
+    import infercnv_tpu_torch.runner.pipeline as tp
+
+    assert not hasattr(tp, "_refuse_unported") and not hasattr(ths, "_refuse_sim")
+    for path in PKG.rglob("*.py"):
+        text = path.read_text()
+        assert "not ported yet" not in text, path
+        assert "ROADMAP A8" not in text and "ROADMAP A9" not in text, path

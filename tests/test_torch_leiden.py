@@ -8,6 +8,8 @@ the reference's numpy, so they are equal; the pure-Python ``leiden_plain``
 agrees with the native result in structure, as tests/test_leiden.py:42-54
 holds the reference's pair.  A failed build raises."""
 
+import importlib
+
 import numpy as np
 import pytest
 from scipy import sparse
@@ -18,11 +20,14 @@ from infercnv_tpu.subcluster.leiden import knn_graph as j_knn_graph
 from infercnv_tpu.subcluster.leiden import leiden as j_leiden
 from infercnv_tpu.subcluster.leiden import snn_graph as j_snn_graph
 import infercnv_tpu_torch.native as tnative
-from infercnv_tpu_torch.subcluster import leiden as tl
 
 from test_leiden import _agreement, planted_graph
 from test_leiden_fidelity import _clique_block, _partition_sets
 from torch_port_util import one_thread_a_pool
+
+# the module: the sub-package's own `leiden` is the function it exports, as
+# in the JAX package (infercnv_tpu/subcluster/__init__.py)
+tl = importlib.import_module("infercnv_tpu_torch.subcluster.leiden")
 
 
 @pytest.fixture(autouse=True)

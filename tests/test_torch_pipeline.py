@@ -8,9 +8,11 @@ nothing; for i6 the port's build_hspike and cnv_mean_sd_trend_fit are
 replaced by the reference's hspike and trend fits, carried across, since
 the two packages draw different random bits (their draws are held to their
 distribution in tests/test_torch_hspike.py), and so is the reference's PCA
-range-finder draw for the Leiden partition.  Options whose modules are not
-ported raise NotImplementedError naming their ROADMAP item, before any
-work; the options that were refused until the op-by-op steps, the DE mask,
+range-finder draw for the Leiden partition.  The options that were refused
+until the mesh and splatter were ported run now
+(test_unported_options_are_refused_before_any_work: a mismatched mesh is
+still refused before any work); the options that were refused until the
+op-by-op steps, the DE mask,
 the Leiden, random_trees and per-chromosome partitions and the plots were
 ported run against the reference (test_formerly_refused_options_match_the_reference;
 tests/test_torch_pipeline_ops.py holds them in more depth), and so do the
@@ -137,6 +139,8 @@ def test_i6_untouched_calls_the_planted_cnvs(tmp_path, sim_method):
     assert obj.expr is not o.expr          # the caller's object is untouched
 
 
+#: the options refused until the mesh (ROADMAP A8) and splatter (A9) were
+#: ported; the test keeps its name and cases
 REFUSED = [
     (dict(n_devices=2), "A8"),
     (dict(HMM=True, sim_method="splatter"), "A9"),
@@ -145,11 +149,24 @@ REFUSED = [
 
 @pytest.mark.parametrize("kw,item", REFUSED)
 def test_unported_options_are_refused_before_any_work(tmp_path, kw, item):
+    """Nothing is refused as unported any more: each formerly refused
+    option runs (tests/test_torch_mesh.py and tests/test_torch_splatter.py
+    hold it to the reference), and a mesh of another device type than the
+    run's is refused before any work."""
     args = {**KW, "analysis_mode": "samples", **kw}
-    out = tmp_path / "never"
     obj = infercnv_from_numpy(vars(make_synthetic(n_normal=4, n_tumor=4, genes_per_chr=10)))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        tp.run(obj, out_dir=str(out), device="cpu", **args)
+    res = tp.run(obj, out_dir=str(tmp_path / "ran"), device="cpu", **args)
+    assert res.infercnv_obj.num_cells == obj.num_cells
+    if item == "A9":
+        assert res.hmm_states is not None
+        assert res.infercnv_obj.hspike is not None
+    out = tmp_path / "never"
+    import torch
+    from infercnv_tpu_torch.parallel.stats import CellMesh
+
+    with pytest.raises(ValueError, match="device"):
+        tp.run(obj, out_dir=str(out), device="cpu",
+               mesh=CellMesh([torch.device("cuda", 0)]), **args)
     assert not out.exists()
 
 

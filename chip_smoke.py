@@ -41,11 +41,12 @@ Phases, each printing one JSON line:
               kernel of its own) on tests/test_bayes_scale.py's three cases,
               then timed on one block of the Bayes workload's size (48
               regions x 3,125 cells, 6 states, 6 chains, 1,200 sweeps)
-  run_i6_subclusters, run_i3_coords_cells  run() on 34,816 cells x 8448
-              genes (make_run_object): i6 with qnorm subclusters and the
-              Bayesian filter at BayesMaxPNormal=0.5, the planted calls
-              gated on the filtered states and reports; i3 with the
-              coordinates smooth in cells mode (BayesMaxPNormal=0)
+  run_i6_subclusters, run_i3_coords_cells  run() on 34,816 (i3: 18,432)
+              cells x 8448 genes (make_run_object): i6 with qnorm
+              subclusters and the Bayesian filter at BayesMaxPNormal=0.5,
+              the planted calls gated on the filtered states and reports;
+              i3 with the coordinates smooth in cells mode
+              (BayesMaxPNormal=0)
   run_i6_leiden  the same object, run()'s default Leiden partition with
               cluster_by_groups=False, the Bayesian filter and the plots at
               the reference's defaults (no_plot=False, png_res=300,
@@ -98,6 +99,18 @@ Phases, each printing one JSON line:
               run(sim_method="splatter") gated on its planted calls, and
               the median filter card against CPU, timed on the Leiden
               run's object (or one 4,096-cell group of it)
+  scale_reference  the 1M-cell configuration's options (float16 chunk
+              downloads, the residual in a disk memmap, lazy per-group
+              slicing and the in-place denoise forced) on run_reference's
+              1,024 cells, qnorm and Leiden, the card against the CPU: the
+              final expr within one float16 ulp but at the denoise band's
+              edge, the states and reports equal, each route taken
+  run_scale   run() at 262,144 cells x 9,000 genes with those options
+              (benchmarks/scale1m_run.py's workload and gates, the cells cut
+              from 1M), in a process of its own (chip_smoke.py
+              --scale-worker DIR runs it alone): the planted calls, each
+              route taken, kernels 1, 2, 3 and 7 launched, each step's
+              seconds, peak host RSS and the card's memory before and after
 Each path phase runs two warm-up chunks, then sets every launch count to 0
 just before it and reads them just after; besides its wall-clock rate it
 reports the chunks' mean device span (CUDA events).  Then the kernel table as one JSON line, the nvidia-smi line, and
@@ -108,7 +121,9 @@ exits non-zero at once.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import logging
 import shutil
 import subprocess
 import sys
@@ -143,6 +158,9 @@ REF_CHUNK = 16384           # rows of ref_stats' chunks above its threshold
 #: hclust partition's LINKAGE_MAX_CELLS (8,000)
 RUN_OBS = 4096
 RUN_REF = 1024
+#: run_i3_coords_cells' observation groups, half RUN_OBS (18,432 cells) so
+#: that the script, with run_scale, stays within its time limit
+RUN_I3_OBS = 2048
 RUN_CHECK_OBS = 96          # run_reference: 8 x 96 + 2 x 128 = 1,024 cells
 RUN_CHECK_REF = 128
 #: the run phases at 34,816 cells keep save_rds=False: a compressed
@@ -163,8 +181,12 @@ PROTEIN_CODING = (2050, 1300, 1080, 750, 880, 1040, 920, 690, 780, 730, 1310,
                   1030, 320, 610, 600, 850, 1180, 270, 1470, 540, 230, 440)
 
 
+#: the script's start: each phase line carries its seconds since (t_s)
+T_START = time.perf_counter()
+
+
 def emit(**kv):
-    print(json.dumps(kv), flush=True)
+    print(json.dumps({**kv, "t_s": round(time.perf_counter() - T_START, 1)}), flush=True)
 
 
 def fail(msg: str) -> int:
@@ -487,16 +509,21 @@ def report_regions(out_dir: Path, neutral: int, prefix: str = "17_HMM_pred") -> 
     return found
 
 
-def denoised_agree(got, want, tol: float = RESID_TOL):
+def denoised_agree(got, want, tol: float = RESID_TOL, f16: bool = False):
     """Whether two runs' final (denoised) expr agree within rtol = atol =
-    tol, except where a value sat within tol of the denoise band's edge, so
-    that one run moved it to the band's centre and the other kept it: there
-    one side is its run's centre (the value denoise writes, the most
-    frequent one) and the other lies within 2 tol of the band's edge (the
-    nearest kept value).  Returns (ok, max error elsewhere, such places)."""
+    tol (with f16, the chunks downloaded as float16: within one float16
+    ulp, 2^-10 |want|), except where a value sat within tol of the denoise
+    band's edge, so that one run moved it to the band's centre and the other
+    kept it: there one side is its run's centre (the value denoise writes,
+    the most frequent one) and the other lies within 2 tol of the band's
+    edge (the nearest kept value).  Returns (ok, max error elsewhere, such
+    places)."""
     import numpy as np
 
-    close = np.abs(got - want) <= tol + tol * np.abs(want)
+    def within(a):
+        return 2.0 ** -10 * np.abs(a) if f16 else tol + tol * np.abs(a)
+
+    close = np.abs(got - want) <= within(want)
     centres = []
     for a in (got, want):
         vals, counts = np.unique(a, return_counts=True)
@@ -504,8 +531,8 @@ def denoised_agree(got, want, tol: float = RESID_TOL):
         centres.append((c, float(np.abs(a[a != c] - c).min())))
     (cg, eg), (cw, ew) = centres
     at_g, at_w = ~close & (got == cg), ~close & (want == cw)
-    flip = ((at_g & (np.abs(np.abs(want - cw) - ew) <= 2 * tol + 2 * tol * np.abs(want)))
-            | (at_w & (np.abs(np.abs(got - cg) - eg) <= 2 * tol + 2 * tol * np.abs(got))))
+    flip = ((at_g & (np.abs(np.abs(want - cw) - ew) <= 2 * within(want)))
+            | (at_w & (np.abs(np.abs(got - cg) - eg) <= 2 * within(got))))
     rest = ~close & ~flip
     err = float(np.abs(got - want)[~flip].max())
     return not rest.any(), err, int(flip.sum())
@@ -730,25 +757,51 @@ def replay_step15(inputs, dev) -> dict:
             "ok": same or bool(ties["all_near_ties"])}
 
 
-def logged_run(obj, out_dir: str, device, kw: dict) -> dict:
-    """run() under a capturing Step15Log; returns what card_against_cpu
-    compares, as numpy and plain containers, so that a worker process can
-    send it back."""
+@contextlib.contextmanager
+def constants_set(constants: dict):
+    """Module constants of the port ({module: {name: value}}) set for a
+    block, then restored."""
+    import importlib
+
+    saved = []
+    try:
+        for mod_name, values in constants.items():
+            mod = importlib.import_module(mod_name)
+            for k, v in values.items():
+                saved.append((mod, k, getattr(mod, k)))
+                setattr(mod, k, v)
+        yield
+    finally:
+        for mod, k, v in reversed(saved):
+            setattr(mod, k, v)
+
+
+def logged_run(obj, out_dir: str, device, kw: dict, constants=None) -> dict:
+    """run() under a capturing Step15Log, with the port's module constants
+    `constants` set; returns what card_against_cpu compares, as numpy and
+    plain containers (and the log's lines and step 15's row source), so
+    that a worker process can send it back."""
     sys.path.insert(0, str(ROOT))
     from infercnv_tpu_torch.runner.pipeline import run as run_pipeline
+    from infercnv_tpu_torch.subcluster import partition
 
-    with Step15Log(capture=True) as log:
-        r = run_pipeline(obj, out_dir=out_dir, device=device, **RUN_KW, **kw)
+    with constants_set(constants or {}), Step15Log(capture=True) as log, \
+            LogLines() as lines:
+        r = run_pipeline(obj, out_dir=out_dir, device=device, **{**RUN_KW, **kw})
     return {"expr": r.infercnv_obj.expr, "states": r.hmm_states,
             "subclusters": r.infercnv_obj.tumor_subclusters["subclusters"],
             "per_chr": r.subclusters_per_chr, "events": log.events,
-            "inputs": log.inputs}
+            "inputs": log.inputs, "log": lines.lines, "rows_from": partition.ROWS_FROM}
 
 
-def card_against_cpu(obj, out_root: Path, name: str, dev, **kw) -> dict:
+def card_against_cpu(obj, out_root: Path, name: str, dev, constants=None,
+                     f16: bool = False, **kw) -> dict:
     """run() of one configuration on the card and on the CPU (the CPU run in
-    a worker process beside the card run): subclusters, states and report
-    bytes equal, final expr under denoised_agree.
+    a worker process beside the card run), the port's module constants
+    `constants` set in both: subclusters, states and report bytes equal,
+    final expr under denoised_agree (with f16, the chunks downloaded as
+    float16: within one float16 ulp).  Returns (the comparison, the card
+    run's logged_run result).
 
     Step 15's input differs between the two runs by the engine's rounding
     (kernels against plain versions, within 2e-5), and on groups with no
@@ -766,8 +819,8 @@ def card_against_cpu(obj, out_root: Path, name: str, dev, **kw) -> dict:
 
     dirs = {d: out_root / f"{name}_{d}" for d in ("card", "cpu")}
     with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
-        cpu = pool.submit(logged_run, obj, str(dirs["cpu"]), "cpu", kw)
-        rg = logged_run(obj, str(dirs["card"]), dev, kw)
+        cpu = pool.submit(logged_run, obj, str(dirs["cpu"]), "cpu", kw, constants)
+        rg = logged_run(obj, str(dirs["card"]), dev, kw, constants)
         rc = cpu.result()
     same_parts = (nested_equal(rg["subclusters"], rc["subclusters"])
                   and nested_equal(rg["per_chr"], rc["per_chr"]))
@@ -787,7 +840,7 @@ def card_against_cpu(obj, out_root: Path, name: str, dev, **kw) -> dict:
                                                 shallow=False)]
     eg, ec = rg["expr"], rc["expr"]
     shape_ok = eg.shape == ec.shape
-    ok, err, flips = denoised_agree(eg, ec) if shape_ok else (False, None, 0)
+    ok, err, flips = denoised_agree(eg, ec, f16=f16) if shape_ok else (False, None, 0)
     if same_parts:
         require(same_states, f"{name}: card and CPU HMM states differ")
         require(len(reports) == 4 and equal == reports,
@@ -798,7 +851,7 @@ def card_against_cpu(obj, out_root: Path, name: str, dev, **kw) -> dict:
                 step15_input_max_abs_err=input_err, subclusters_equal=same_parts,
                 replay=replay, subclusters=sum(len(v) for v in rc["subclusters"].values()),
                 states_equal=same_states, reports_byte_equal=equal,
-                expr_max_abs_err=err, denoise_edge_flips=flips)
+                expr_max_abs_err=err, denoise_edge_flips=flips), rg
 
 
 def bayes_sampler(dev, smi) -> None:
@@ -927,32 +980,35 @@ def have_matplotlib() -> bool:
     return importlib.util.find_spec("matplotlib") is not None
 
 
-class PlotWarnings:
-    """Collects the warnings the port logs while it is entered; `failed`
-    lists those that say a plot failed."""
+class LogLines(logging.Handler):
+    """Collects the port's log messages of `level` and above while it is
+    installed (a with block)."""
+
+    def __init__(self, level=logging.INFO):
+        super().__init__(level)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
 
     def __enter__(self):
-        import logging
-
-        self.records = []
-        outer = self
-
-        class Grab(logging.Handler):
-            def emit(self, record):
-                outer.records.append(record.getMessage())
-
-        self.handler = Grab(level=logging.WARNING)
-        logging.getLogger("infercnv_tpu_torch").addHandler(self.handler)
+        logging.getLogger("infercnv_tpu_torch").addHandler(self)
         return self
 
     def __exit__(self, *exc):
-        import logging
+        logging.getLogger("infercnv_tpu_torch").removeHandler(self)
 
-        logging.getLogger("infercnv_tpu_torch").removeHandler(self.handler)
+
+class PlotWarnings(LogLines):
+    """Collects the warnings the port logs while it is entered; `failed`
+    lists those that say a plot failed."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
 
     @property
     def failed(self):
-        return [m for m in self.records if " failed" in m]
+        return [m for m in self.lines if " failed" in m]
 
 
 def check_plot_warnings(w: PlotWarnings, mpl: bool, what: str) -> list:
@@ -1133,9 +1189,21 @@ def heatmap_data_phase(obj, dev, smi) -> None:
                       "card_s": card_s, "cpu_s": cpu_s})
 
 
+def warned_run(obj, out_dir: str, device, kw: dict):
+    """run() under PlotWarnings, in a worker process: (result, warnings)."""
+    sys.path.insert(0, str(ROOT))
+    from infercnv_tpu_torch.runner.pipeline import run as run_pipeline
+
+    with PlotWarnings() as warned:
+        res = run_pipeline(obj, out_dir=out_dir, device=device, **kw)
+    return res, warned.lines
+
+
 def run_phases(dev, smi, out_root: Path) -> dict:
     """The run() phases; returns each full-width phase's launches."""
     import filecmp
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
 
     import numpy as np
     import torch
@@ -1284,7 +1352,7 @@ def run_phases(dev, smi, out_root: Path) -> dict:
 
     # ---- run_i3_coords_cells: i3, coordinates smoothing, cells mode -----
     hgo = human_like_genome(8448)
-    obj, make_s = make_run_object(hgo, RUN_OBS, RUN_REF)
+    obj, make_s = make_run_object(hgo, RUN_I3_OBS, RUN_REF)
     # BayesMaxPNormal=0: the i3 filter differs from the i6 one only in mu
     # and tau (host code the tests hold to the reference)
     res, wall, n = drive_run(obj, out_root / "run_i3_coords_cells", dev, HMM=True,
@@ -1322,9 +1390,14 @@ def run_phases(dev, smi, out_root: Path) -> dict:
               tumor_subcluster_partition_method="qnorm", denoise=True,
               no_plot=False, diagnostics=True, BayesMaxPNormal=0.5, save_rds=True)
     dirs = {d: out_root / f"run_reference_{d}" for d in ("card", "cpu")}
-    with PlotWarnings() as warned:
+    # the CPU run in a worker process beside the card run (each writes its
+    # compressed checkpoints on the host)
+    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool, \
+            PlotWarnings() as warned:
+        cpu = pool.submit(warned_run, obj, str(dirs["cpu"]), "cpu", kw)
         rg = run_pipeline(obj, out_dir=str(dirs["card"]), device=dev, **kw)
-        rc = run_pipeline(obj, out_dir=str(dirs["cpu"]), device="cpu", **kw)
+        rc, cpu_warnings = cpu.result()
+    warned.lines += cpu_warnings
     plot_failures = check_plot_warnings(warned, mpl, "run_reference")
     eg, ec = rg.infercnv_obj.expr, rc.infercnv_obj.expr
     ok, err, flips = denoised_agree(eg, ec)
@@ -1423,30 +1496,342 @@ def run_phases(dev, smi, out_root: Path) -> dict:
     # ---- run_subcluster_reference: Leiden per chromosome, and the -------
     # op-by-op options with random_trees, the card against the CPU
     t0 = time.perf_counter()
-    a = card_against_cpu(obj, out_root, "run_subcluster_reference_a", dev,
-                         HMM=True, HMM_type="i6", analysis_mode="subclusters",
-                         cluster_by_groups=True, per_chr_hmm_subclusters=True,
-                         BayesMaxPNormal=0)
+    a, _ = card_against_cpu(obj, out_root, "run_subcluster_reference_a", dev,
+                            HMM=True, HMM_type="i6", analysis_mode="subclusters",
+                            cluster_by_groups=True, per_chr_hmm_subclusters=True,
+                            BayesMaxPNormal=0)
     a_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    b = card_against_cpu(obj, out_root, "run_subcluster_reference_b", dev,
-                         HMM=True, HMM_type="i6", analysis_mode="subclusters",
-                         use_engine=False, num_ref_groups=2,
-                         tumor_subcluster_partition_method="random_trees",
-                         max_centered_threshold="auto",
-                         remove_genes_at_chr_ends=True, prune_outliers=True,
-                         mask_nonDE_genes=True, BayesMaxPNormal=0)
+    b, _ = card_against_cpu(obj, out_root, "run_subcluster_reference_b", dev,
+                            HMM=True, HMM_type="i6", analysis_mode="subclusters",
+                            use_engine=False, num_ref_groups=2,
+                            tumor_subcluster_partition_method="random_trees",
+                            max_centered_threshold="auto",
+                            remove_genes_at_chr_ends=True, prune_outliers=True,
+                            mask_nonDE_genes=True, BayesMaxPNormal=0)
     b_s = time.perf_counter() - t0
     emit(phase="run_subcluster_reference", leiden_per_chr=dict(a, seconds=a_s),
          op_by_op_random_trees=dict(b, seconds=b_s))
     torch.cuda.empty_cache()
 
+    # ---- scale_reference: the 1M-cell options on these 1,024 cells ------
+    scale_reference_phase(obj, dev, out_root)
+
     # ---- the mesh in run(), several processes, the entry points ---------
     mesh_run_phase(obj, dev, smi, out_root)
     multiprocess_phase(dev, smi, out_root)
     entry_points_phase(obj, dev, smi, out_root, mf_timing)
+    del obj
     torch.cuda.empty_cache()
+
+    # ---- run_scale: run() at 262,144 cells in a process of its own ------
+    launches["run_scale"] = run_scale_phase(smi, out_root)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# the 1M-cell configuration's options: float16 downloads, the residual in a
+# disk memmap, lazy per-group slicing, the in-place block denoise
+# ---------------------------------------------------------------------------
+
+#: the options of benchmarks/scale1m_run.py:137-144 that change routes
+SCALE_OPTIONS = dict(engine_transfer_dtype="float16")
+#: the port's constants that switch the last two on above 2e9 elements, and
+#: the one that keeps a Leiden step 15's residual on the card, set so that
+#: 1,024 cells take every route of the 1M-cell run
+SCALE_FORCED = {"infercnv_tpu_torch.subcluster.partition": {"LAZY_SLICE_ELEMENTS": 0},
+                "infercnv_tpu_torch.runner.pipeline": {"INPLACE_DENOISE_ELEMENTS": 0,
+                                                       "KEEP_RESIDUAL_BYTES": 0}}
+#: at most this share of a scale_reference run's values may sit on the
+#: denoise band's edge (tests/test_torch_scale_paths.py's bound)
+EDGE_SHARE = 1e-3
+KERNEL_DIRECT = "engine chunk downloads as float16 (kernel-direct)"
+LAZY_SLICE = "lazy per-group slicing"
+MEMMAP_NAME = "_residual.f32.memmap"
+
+
+def scale_reference_phase(obj, dev, out_root: Path) -> None:
+    """run() with the 1M-cell configuration's four options on
+    run_reference's 1,024 cells, the card against the CPU (a worker
+    process): float16 downloads, residual_memmap_gb=1e-9, and lazy slicing
+    and the in-place denoise forced in both runs (SCALE_FORCED); the qnorm
+    subclusters as run_reference takes them, and the Leiden.  The card's
+    final expr within one float16 ulp of the CPU's but at the denoise
+    band's edge (counted and bounded), the states equal and the region
+    reports byte-equal (card_against_cpu); each route shown taken on the
+    card: the memmap file at 4 C G bytes, still the final expr after step
+    22, the kernel-direct float16 store, the lazy slice."""
+    import numpy as np
+
+    out = {}
+    for method in ("qnorm", "leiden"):
+        name = f"scale_reference_{method}"
+        t0 = time.perf_counter()
+        cmp, card = card_against_cpu(
+            obj, out_root, name, dev, constants=SCALE_FORCED, f16=True,
+            HMM=True, HMM_type="i6", analysis_mode="subclusters",
+            tumor_subcluster_partition_method=method, BayesMaxPNormal=0,
+            residual_memmap_gb=1e-9, **SCALE_OPTIONS)
+        seconds = time.perf_counter() - t0
+        expr = card["expr"]
+        mm = {d: out_root / f"{name}_{d}" / MEMMAP_NAME for d in ("card", "cpu")}
+        sizes = {d: p.stat().st_size if p.exists() else None for d, p in mm.items()}
+        require(all(v == 4 * expr.size for v in sizes.values()),
+                f"{name}: memmap files {sizes}, not {4 * expr.size} bytes each")
+        require(isinstance(expr, np.memmap)
+                and Path(expr.filename).resolve() == mm["card"].resolve(),
+                f"{name}: the final expr is a {type(expr).__name__}, not the memmap")
+        routes = {"kernel_direct_f16": any(KERNEL_DIRECT in m for m in card["log"]),
+                  "lazy_slice": any(LAZY_SLICE in m for m in card["log"]),
+                  "rows_from": card["rows_from"]}
+        require(routes["kernel_direct_f16"] and routes["lazy_slice"]
+                and routes["rows_from"] == "host", f"{name}: routes not taken: {routes}")
+        require(cmp["denoise_edge_flips"] <= EDGE_SHARE * expr.size,
+                f"{name}: {cmp['denoise_edge_flips']} values on the denoise band's edge")
+        out[method] = dict(cmp, seconds=seconds, routes=routes, memmap_bytes=sizes["card"])
+    emit(phase="scale_reference", **out)
+
+
+#: run_scale: benchmarks/scale1m_run.py's workload (BASELINE.json config 5)
+#: cut from 1M cells to 262,144, the smallest power of two at which run()'s
+#: own 2e9-element rules switch on lazy slicing and the in-place denoise
+#: (262,144 x ~8,940 genes after the cutoff, 2.34e9), for the script's time
+#: limit; and residual_memmap_gb 4.0 in place of 20.0, so that its 9.4 GB
+#: residual goes to disk as the 1M run's 36 GB one does
+SCALE_CELLS = 262_144
+SCALE_GENES = 9000
+SCALE_MEMMAP_GB = 4.0
+#: the run's options, as scale1m_run.py:137-144 passes them (no plots: the
+#: card's machine has no matplotlib)
+SCALE_RUN_KW = dict(cutoff=1.0, analysis_mode="subclusters", HMM=True, denoise=True,
+                    tumor_subcluster_partition_method="leiden", no_plot=True,
+                    save_rds=False, inspect_subclusters=False,
+                    engine_chunk_cells=32768, residual_memmap_gb=SCALE_MEMMAP_GB,
+                    **SCALE_OPTIONS)
+SCALE_TIMEOUT_S = 900
+
+
+def synth_scale_counts(C: int, dev, G: int = SCALE_GENES, n_chr: int = 22,
+                       n_groups: int = 3, seed: int = SEED):
+    """benchmarks/scale1m_run.py's synth_counts_streamed (:37-86), copied
+    with the port's GeneOrder: G genes on n_chr chromosomes, 20% reference
+    cells in 2 groups, n_groups tumour groups with a planted loss (0.5x)
+    and gain (2x) of a chromosome each.  The Poisson counts are drawn on the
+    card from a seeded generator, a row block at a time, into one host u16
+    matrix (2.4e9 numpy draws would take most of a minute).  Returns
+    (gene order, counts [C, G] u16, reference groups, tumour groups,
+    {tumour group: (lost genes, gained genes)})."""
+    import numpy as np
+    import torch
+
+    from infercnv_tpu_torch.core.genome import GeneOrder
+
+    sizes = np.linspace(800, 120, n_chr).astype(int)
+    sizes = (sizes / sizes.sum() * G).astype(int)
+    sizes[0] += G - sizes.sum()
+    go = GeneOrder(
+        names=tuple(f"g{i}" for i in range(G)),
+        chr_names=tuple(f"chr{i+1}" for i in range(n_chr)),
+        chr_ids=np.repeat(np.arange(n_chr), sizes).astype(np.int32),
+        start=np.arange(G) * 1000, stop=np.arange(G) * 1000 + 500,
+    )
+    rng = np.random.default_rng(seed)
+    gene_means = rng.gamma(2.0, 8.0, G)
+    n_ref = C // 5
+    ranges = go.chr_ranges()
+    planted, tumor_groups = {}, {}
+    per_grp = (C - n_ref) // n_groups
+    factors = np.ones((n_groups + 1, G))  # row 0 = reference factor
+    for gi in range(n_groups):
+        lo = n_ref + gi * per_grp
+        hi = C if gi == n_groups - 1 else lo + per_grp
+        tumor_groups[f"malignant_{gi+1}"] = np.arange(lo, hi)
+        dci, aci = (2 * gi + 1) % n_chr, (2 * gi + 2) % n_chr
+        db, de = ranges[dci]
+        ab, ae = ranges[aci]
+        factors[gi + 1, db:de] = 0.5
+        factors[gi + 1, ab:ae] = 2.0
+        planted[f"malignant_{gi+1}"] = (np.arange(db, de), np.arange(ab, ae))
+    counts = np.empty((C, G), np.uint16)
+    bounds = [0, n_ref] + [n_ref + gi * per_grp for gi in range(1, n_groups)] + [C]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for row_grp in range(n_groups + 1):
+        lo, hi = bounds[row_grp], bounds[row_grp + 1]
+        lam = torch.tensor(gene_means * factors[row_grp], dtype=torch.float32, device=dev)
+        for b in range(lo, hi, CHUNK):
+            e = min(b + CHUNK, hi)
+            block = make_counts(lam[None, :].expand(e - b, G).contiguous(), gen)
+            counts[b:e] = block.view(torch.int16).cpu().numpy().view(np.uint16)
+    ref_groups = {"normal_a": np.arange(0, n_ref // 2),
+                  "normal_b": np.arange(n_ref // 2, n_ref)}
+    return go, counts, ref_groups, tumor_groups, planted
+
+
+def machine_room(path: Path) -> dict:
+    """The machine's RAM (/proc/meminfo, as `free` reads it) and the free
+    disk under `path`, in GB."""
+    mem = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            k, v = line.split(":")
+            mem[k] = int(v.split()[0]) * 1024
+    return {"ram_total_gb": mem["MemTotal"] / 1e9,
+            "ram_available_gb": mem["MemAvailable"] / 1e9,
+            "disk_free_gb": shutil.disk_usage(path).free / 1e9}
+
+
+def scale_worker(argv) -> int:
+    """run_scale's process: chip_smoke.py --scale-worker DIR [DEVICE] (the
+    first card by default).  Makes the counts, runs run() at SCALE_RUN_KW,
+    gates the result as benchmarks/scale1m_run.py:148-171 does and the
+    routes the options take, and writes DIR/result.json; a failed gate
+    exits non-zero."""
+    import gc
+    import resource
+
+    import numpy as np
+    import torch
+
+    dev = torch.device(argv[1] if len(argv) > 1 else "cuda:0")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        return fail("scale worker: no CUDA device")
+    sys.path.insert(0, str(ROOT))
+    from infercnv_tpu_torch.core.object import InferCNV
+    from infercnv_tpu_torch.runner.pipeline import run as run_pipeline
+    from infercnv_tpu_torch.subcluster import partition
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out_dir = Path(argv[0])
+    run_dir = out_dir / "run"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+    C = SCALE_CELLS
+    room = machine_room(run_dir)
+    counts_gb, memmap_gb = C * SCALE_GENES * 2 / 1e9, C * SCALE_GENES * 4 / 1e9
+    # the counts, step 2's float32 copy and its gene-filtered counts, and
+    # the memmap's pages: a margin of twice the counts and the memmap
+    require(room["ram_available_gb"] > 2 * (counts_gb + memmap_gb),
+            f"run_scale: this machine cannot hold {counts_gb:.1f} GB of counts plus "
+            f"a {memmap_gb:.1f} GB memmap: {room}")
+    require(room["disk_free_gb"] > 1.2 * memmap_gb,
+            f"run_scale: {room['disk_free_gb']:.1f} GB of free disk cannot hold the "
+            f"{memmap_gb:.1f} GB memmap")
+    t0 = time.perf_counter()
+    go, counts, ref_groups, tumor_groups, planted = synth_scale_counts(C, dev)
+    torch.cuda.synchronize()
+    make_s = time.perf_counter() - t0
+    obj = InferCNV(expr=counts, counts=counts, gene_order=go,
+                   cell_names=[f"c{i}" for i in range(C)],
+                   ref_groups=ref_groups, obs_groups=tumor_groups)
+    del counts
+    torch.cuda.empty_cache()
+    held_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    partition.ROWS_FROM = None
+    with LogLines() as lines:
+        t0 = time.perf_counter()
+        res = run_pipeline(obj, out_dir=str(run_dir), device=dev, **SCALE_RUN_KW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak_card = torch.cuda.max_memory_allocated()
+    held_after = torch.cuda.memory_allocated()
+    final = res.infercnv_obj
+    expr = final.expr
+    # the routes: the memmap at 4 C G bytes is still the final expr after
+    # step 22's in-place denoise, the kernel stored float16, step 15 sliced
+    # each group from it; the kernels of the path launched
+    mm = run_dir / MEMMAP_NAME
+    mm_bytes = mm.stat().st_size if mm.exists() else None
+    routes = {"memmap_bytes": mm_bytes,
+              "expr_is_the_memmap": (isinstance(expr, np.memmap)
+                                     and Path(expr.filename).resolve() == mm.resolve()),
+              "kernel_direct_f16": any(KERNEL_DIRECT in m for m in lines.lines),
+              "lazy_slice": any(LAZY_SLICE in m for m in lines.lines),
+              "rows_from": partition.ROWS_FROM,
+              "elements": int(expr.size)}
+    # the reference script's gates (scale1m_run.py:148-171)
+    st = res.hmm_states
+    n_sub = sum(len(v) for v in final.tumor_subclusters["subclusters"].values())
+    gene_lut = {n: i for i, n in enumerate(final.gene_order.names)}
+    calls = {}
+    for g, idx in tumor_groups.items():
+        del_genes, amp_genes = planted[g]
+        dsel = [gene_lut[f"g{i}"] for i in del_genes if f"g{i}" in gene_lut]
+        asel = [gene_lut[f"g{i}"] for i in amp_genes if f"g{i}" in gene_lut]
+        sub = idx[::max(1, idx.size // 20000)]
+        calls[g] = {"del": float((st[np.ix_(sub, dsel)] < 3).mean()),
+                    "amp": float((st[np.ix_(sub, asel)] > 3).mean())}
+    ref_idx = final.all_ref_idx()
+    neutral = float((st[ref_idx[::max(1, ref_idx.size // 20000)]] == 3).mean())
+    reports = sorted(p.name for p in run_dir.glob("*pred_cnv_regions.dat"))
+    step_seconds = res.timer.records
+    del st, expr, final, res
+    gc.collect()
+    torch.cuda.synchronize()
+    held_after_gc = torch.cuda.memory_allocated()
+    # what is left: the smooth's bounded cache of band weights (the hspike
+    # mirror's), and PyTorch's own (cuBLAS workspaces)
+    from infercnv_tpu_torch.ops import smoothing
+
+    smoothing._WEIGHTS.clear()
+    held_without_weights = torch.cuda.memory_allocated()
+    result = dict(
+        card=nvidia_smi(), cells=C, genes=int(routes["elements"] // C),
+        machine=room, make_counts_s=make_s, wall_s=wall,
+        step_seconds=step_seconds,
+        peak_host_rss_gb=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9,
+        peak_card_gb=peak_card / 1e9,
+        card_allocated_gb={"before_run": held_before / 1e9, "after_return": held_after / 1e9,
+                           "after_gc": held_after_gc / 1e9,
+                           "without_the_smooth_weights_cache": held_without_weights / 1e9,
+                           "reserved_after_gc": torch.cuda.memory_reserved() / 1e9},
+        launches=launches, routes=routes, called=calls, reference_neutral=neutral,
+        subclusters=n_sub, region_reports=reports)
+    (out_dir / "result.json").write_text(json.dumps(result))
+    require(mm_bytes == 4 * routes["elements"] and routes["expr_is_the_memmap"]
+            and routes["kernel_direct_f16"] and routes["lazy_slice"]
+            and routes["rows_from"] == "host", f"run_scale: routes not taken: {routes}")
+    for k in ("residual_fused", "viterbi", "smooth_banded", "row_median"):
+        require(launches[k] > 0, f"run_scale: {k} was not launched")
+    require(all(v["del"] > 0.7 and v["amp"] > 0.7 for v in calls.values()),
+            f"run_scale: planted CNVs not all called: {calls}")
+    require(neutral > 0.95, f"run_scale: reference cells {neutral:.3f} neutral")
+    require(n_sub >= len(tumor_groups), f"run_scale: {n_sub} subclusters")
+    require(bool(reports), "run_scale: region reports missing")
+    return 0
+
+
+def run_scale_phase(smi, out_root: Path) -> dict:
+    """run() at 262,144 cells x 9,000 genes with the 1M-cell configuration's
+    options (scale_worker), in a process of its own, so that its peak host
+    RSS and its card memory are its own; returns its launches."""
+    out_dir = out_root / "run_scale"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    log = out_dir / "worker.log"
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        try:
+            rc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                                 "--scale-worker", str(out_dir)], stdout=f,
+                                stderr=subprocess.STDOUT, timeout=SCALE_TIMEOUT_S).returncode
+        except subprocess.TimeoutExpired:
+            rc = f"killed after {SCALE_TIMEOUT_S} s"
+    seconds = time.perf_counter() - t0
+    result_path = out_dir / "result.json"
+    result = json.loads(result_path.read_text()) if result_path.exists() else None
+    if rc != 0:
+        tail = log.read_text().splitlines()[-30:]
+        print("\n".join(tail), file=sys.stderr, flush=True)
+        if result is not None:
+            emit(phase="run_scale", process_s=seconds, **result)
+    require(rc == 0 and result is not None, f"run_scale: the worker exited with {rc}")
+    (out_dir / "run" / MEMMAP_NAME).unlink(missing_ok=True)
+    emit(phase="run_scale", process_s=seconds, **result)
+    return result["launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -2788,9 +3173,9 @@ def main() -> int:
         import torch
     except ImportError:
         return fail("PyTorch is not installed")
-    if sys.argv[1:2] == ["--worker"]:
+    if sys.argv[1:2] in (["--worker"], ["--scale-worker"]):
         try:
-            return worker(sys.argv[2:])
+            return (worker if sys.argv[1] == "--worker" else scale_worker)(sys.argv[2:])
         except Check as e:
             return fail(str(e))
     if not torch.cuda.is_available():

@@ -234,8 +234,8 @@ def _viterbi_perchr(x_bg: np.ndarray, gene_order: GeneOrder, params: HMMParams,
 def viterbi_per_group(x_bg, gene_order, params: HMMParams,
                       group_sds: Optional[np.ndarray] = None,
                       impl: str = "packed",
-                      device: DeviceLike = None,
-                      mesh=None) -> np.ndarray:
+                      mesh=None, *,
+                      device: DeviceLike = None) -> np.ndarray:
     """Viterbi for each row of x_bg ([B, G] per-cell or per-group mean
     expression), per chromosome.  group_sds: optional [B, S] per-row state
     sds, collapsed to their median (:1122); defaults to params.sds for every
@@ -324,8 +324,8 @@ class GroupedStates:
         return self.rows[self.cell_to_row]
 
 
-def predict_hmm_on_cells(obj, params: HMMParams,
-                         device: DeviceLike = None, mesh=None) -> np.ndarray:
+def predict_hmm_on_cells(obj, params: HMMParams, mesh=None, *,
+                         device: DeviceLike = None) -> np.ndarray:
     """Per-cell i6/i3 state matrix [C, G] int8
     (reference predict_CNV_via_HMM_on_indiv_cells :284-324); with a mesh
     the cells shard over it."""
@@ -342,9 +342,10 @@ def predict_hmm_on_groups(
     groups: Dict[str, np.ndarray],
     trend_fits: Optional[Dict[str, Tuple[float, float]]] = None,
     levels: Sequence[str] = I6_LEVELS,
-    factorized: bool = False,
-    device: DeviceLike = None,
     mesh=None,
+    factorized: bool = False,
+    *,
+    device: DeviceLike = None,
 ):
     """Viterbi on per-group mean expression, states written back to every
     member cell (reference predict_CNV_via_HMM_on_tumor_subclusters :345-408

@@ -22,10 +22,12 @@ to bf16 (the reference's ``matmul_dtype="bfloat16"``): every smooth with
 them rounds x to bf16 as well, so each product is exact and only the f32
 sums round.
 
-``smooth_by_chromosome`` and ``smooth_by_chromosome_coordinates`` (the
-reference's lines 214-232) smooth a matrix on a device with the route the
-engine takes for the same band (``smooth_route``): the one-row kernel where
-it takes the band, else the tiled one.
+``smooth_by_chromosome``, ``smooth_by_chromosome_coordinates`` (the
+reference's lines 214-232) and ``apply_banded_operator`` (lines 53-57)
+smooth a matrix on a device with the route the engine takes for the same
+band (``smooth_route``): the one-row kernel where it takes the band, else
+the tiled one.  ``smooth_window_reference`` is the reference's float64
+numpy smoother of one chromosome (lines 235-255), copied.
 
 reference: smooth_by_chromosome (R/inferCNV_ops.R:2406-2434) and
 smooth_by_chromosome_coordinates (:2534-2622).
@@ -531,21 +533,36 @@ def card_smem(device: torch.device) -> int:
 _WEIGHTS: dict = {}
 
 
+def _device_of(x, device: DeviceLike) -> torch.device:
+    return x.device if torch.is_tensor(x) and device is None else resolve_device(device)
+
+
+def _apply_route(x, w: BandWeights, route: str, dev: torch.device) -> torch.Tensor:
+    x = (x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x, np.float32)))
+    x = x.to(device=dev, dtype=torch.float32).contiguous()
+    return apply_banded(x, w) if route == "row" else apply_banded_general(x, w)
+
+
 def _smooth_with(x, key, op_fn, device: DeviceLike) -> torch.Tensor:
-    if torch.is_tensor(x) and device is None:
-        dev = x.device
-    else:
-        dev = resolve_device(device)
+    dev = _device_of(x, device)
     hit = _WEIGHTS.get((key, dev))
     if hit is None:
         if len(_WEIGHTS) >= 16:
             _WEIGHTS.clear()
         w = BandWeights.from_operator(op_fn(), dev)
         hit = _WEIGHTS[(key, dev)] = (w, smooth_route(w, card_smem(dev)))
-    w, route = hit
-    x = (x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x, np.float32)))
-    x = x.to(device=dev, dtype=torch.float32).contiguous()
-    return apply_banded(x, w) if route == "row" else apply_banded_general(x, w)
+    return _apply_route(x, *hit, dev)
+
+
+def apply_banded_operator(x, op: BandedGeneOperator,
+                          device: DeviceLike = None) -> torch.Tensor:
+    """x [C, G] smoothed by a BandedGeneOperator (reference
+    infercnv_tpu/ops/smoothing.py:53-57), on the route the engine takes for
+    its band (smooth_route).  Runs on `device` (a tensor's own device when
+    None; CUDA for a numpy input)."""
+    dev = _device_of(x, device)
+    w = BandWeights.from_operator(op, dev)
+    return _apply_route(x, w, smooth_route(w, card_smem(dev)), dev)
 
 
 def smooth_by_chromosome(x, gene_order, window_length: int = 101,
@@ -573,3 +590,28 @@ def smooth_by_chromosome_coordinates(x, gene_order,
     return _smooth_with(
         x, key, lambda: coordinate_smoothing_operator(gene_order, window_length),
         device)
+
+
+def smooth_window_reference(x_gc: np.ndarray, window_length: int) -> np.ndarray:
+    """Direct float64 implementation of the single-chromosome smoother on a
+    [G, C] matrix (the orientation the reference's .smooth_window uses).
+
+    y[g] = sum k[d] x[g+d] / sum k[d] over in-range taps — algebraically
+    identical to .smooth_helper's interior filter + end renormalization
+    (denominator ((w-1)/2)^2 + w - r_l(r_l+1)/2 - r_r(r_r+1)/2 equals the sum
+    of the included triangular weights).
+
+    Copied from infercnv_tpu/ops/smoothing.py:235-255 (numpy, no JAX).
+    """
+    if window_length < 2:
+        return x_gc.copy()
+    t = (window_length - 1) // 2
+    k = np.concatenate([np.arange(1, t + 1), [t + 1], np.arange(t, 0, -1)]).astype(np.float64)
+    G = x_gc.shape[0]
+    out = np.empty_like(x_gc, np.float64)
+    for g in range(G):
+        lo = max(0, g - t)
+        hi = min(G, g + t + 1)
+        seg = k[(lo - g) + t:(hi - g) + t]
+        out[g] = (x_gc[lo:hi].T @ seg) / seg.sum()
+    return out

@@ -261,21 +261,22 @@ def ref_mean_sd_bounds(x, ref_idx: np.ndarray, sd_amplifier: float = 1.5):
 
 def clear_noise_via_ref_mean_sd(x, ref_idx: np.ndarray, sd_amplifier: float = 1.5,
                                 inplace: bool = False):
-    """inplace=True updates a host matrix block by block with no full-size
-    temporaries; the caller must own the buffer (run() does: the engine's
+    """inplace=True updates a host float32 matrix block by block with no
+    full-size temporaries and returns that matrix itself (a disk memmap
+    stays one); the caller must own the buffer (run() does: the engine's
     output)."""
     mean_ref, spread = ref_mean_sd_bounds(x, ref_idx, sd_amplifier)
     if torch.is_tensor(x):
         x = x.to(torch.float32)
         inside = (x > mean_ref - spread) & (x < mean_ref + spread)
         return torch.where(inside, mean_ref, x)
-    x = np.asarray(x, np.float32)
     lo, hi = mean_ref - spread, mean_ref + spread
     if inplace:
         for b in range(0, x.shape[0], 16384):
             blk = x[b:b + 16384]
             blk[(blk > lo) & (blk < hi)] = np.float32(mean_ref)
         return x
+    x = np.asarray(x, np.float32)
     inside = (x > lo) & (x < hi)
     return np.where(inside, np.float32(mean_ref), x)
 

@@ -141,8 +141,8 @@ class CnvEngine:
 
     def __init__(self, gene_order: GeneOrder, hmm: HMMParams,
                  config: EngineConfig = EngineConfig(),
-                 device: DeviceLike = None,
-                 mesh: Optional[CellMesh] = None):
+                 mesh: Optional[CellMesh] = None, *,
+                 device: DeviceLike = None):
         if config.matmul_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unsupported matmul_dtype {config.matmul_dtype}")
         if config.out_dtype not in _OUT_DTYPES:

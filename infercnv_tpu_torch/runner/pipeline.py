@@ -91,6 +91,17 @@ from infercnv_tpu_torch.viz.bayes_plots import (
 from infercnv_tpu_torch.viz.heatmap import plot_cnv
 from infercnv_tpu_torch.viz.subclusters import plot_subclusters
 
+#: The residual of steps 4-14 stays on the device for a Leiden step 15 while
+#: 2.2x its float32 bytes (the chunks plus step 15's gene-filtered copy) are
+#: under this (reference infercnv_tpu/runner/pipeline.py:237-242, the
+#: literal 11e9).
+KEEP_RESIDUAL_BYTES = 11e9
+
+#: Above this many elements, step 22 denoises the matrix block by block in
+#: place (a disk-memmap residual stays on disk; reference
+#: infercnv_tpu/runner/pipeline.py:407, the literal 2_000_000_000).
+INPLACE_DENOISE_ELEMENTS = 2_000_000_000
+
 
 class RunResult:
     """Outputs of run(): the final denoised object, plus HMM products.
@@ -564,7 +575,7 @@ def _run_engine_residual(obj: InferCNV, cfg: RunConfig, timer: StepTimer,
                        and cfg.tumor_subcluster_partition_method == "leiden"
                        and not cfg.per_chr_hmm_subclusters
                        and mesh is None
-                       and resid_bytes < 11e9)
+                       and resid_bytes < KEEP_RESIDUAL_BYTES)
         tdtype = cfg.engine_transfer_dtype
         narrow = tdtype in ("float16", "bfloat16")
         # chunks kept for step 15 stay f32; otherwise the kernel stores the
@@ -657,11 +668,12 @@ def _clear_noise(obj: InferCNV, cfg: RunConfig) -> None:
             obj.expr = np.asarray(T.depress_log_signal_midpt_val(obj.expr, float(center), float(spread)))
         else:
             # >8 GB matrices denoise block-wise in place (the buffer is
-            # run()-owned: the engine allocated it)
-            obj.expr = np.asarray(T.clear_noise_via_ref_mean_sd(
-                obj.expr, ref_idx, cfg.sd_amplifier,
-                inplace=(isinstance(obj.expr, np.ndarray)
-                         and obj.expr.size > 2_000_000_000)))
+            # run()-owned: the engine allocated it, maybe as a disk memmap)
+            inplace = (isinstance(obj.expr, np.ndarray)
+                       and obj.expr.size > INPLACE_DENOISE_ELEMENTS)
+            out = T.clear_noise_via_ref_mean_sd(obj.expr, ref_idx, cfg.sd_amplifier,
+                                                inplace=inplace)
+            obj.expr = out if inplace else np.asarray(out)
 
 
 def run(obj: InferCNV, out_dir: Optional[str] = None,

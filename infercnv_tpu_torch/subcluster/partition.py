@@ -58,6 +58,12 @@ LINKAGE_MAX_CELLS = 8000
 #: `15_subclusters.<phase>` rows.
 PHASE_TIMES: Dict[str, float] = {}
 
+#: Above this many residual elements, the host route slices each group's
+#: rows from obj.expr (possibly a disk memmap) as it partitions it, instead
+#: of first copying the whole gene-filtered matrix (reference
+#: infercnv_tpu/subcluster/partition.py:440, the literal 2_000_000_000).
+LAZY_SLICE_ELEMENTS = 2_000_000_000
+
 #: Where the LAST define_tumor_subclusters call took its groups' rows:
 #: "device_chunks" (the engine's residual kept on the device) or "host"
 #: (obj.expr).
@@ -460,10 +466,12 @@ def define_tumor_subclusters(
             dexpr = torch.cat([r[:nb].index_select(1, kg)
                                for (_b, nb, r) in device_chunks])
             _phase("gene_filter", t0, sync=dexpr)
-        elif obj.expr.size > 2_000_000_000:
+        elif obj.expr.size > LAZY_SLICE_ELEMENTS:
             # never materialize the full gene-filtered copy (34 GB at
             # 1M x 8.5k); each group slices its own rows from the residual
             lazy_slice = True
+            log_info(f"-lazy per-group slicing of the {obj.expr.size:,}-element "
+                     "residual (no full gene-filtered copy)")
             _phase("gene_filter", t0)
         else:
             expr = obj.expr[:, keep_genes]

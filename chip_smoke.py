@@ -69,8 +69,9 @@ Phases, each printing one JSON line:
               the PC1 order of eight 4,096-cell groups), the panes and the
               key's histogram, held card against CPU, with each side's
               seconds and the card's peak memory
-  run_reference, run_subcluster_reference  run() on 1,024 cells, the card
-              against the CPU: i6 with qnorm at the full defaults
+  run_reference, run_subcluster_reference  run() on 1,024 cells (the
+              op-by-op options with random_trees on 512), the card against
+              the CPU: i6 with qnorm at the full defaults
               (BayesMaxPNormal=0.5, save_rds=True, the plots,
               diagnostics=True: modelled regions, posteriors, filtered
               states, checkpoints, the final RDS read back, the plots'
@@ -105,12 +106,24 @@ Phases, each printing one JSON line:
               1,024 cells, qnorm and Leiden, the card against the CPU: the
               final expr within one float16 ulp but at the denoise band's
               edge, the states and reports equal, each route taken
+  scale1m_cells, scale1m_subclusters, scale100k, bayes100k, scale100k_run
+              the scale programs at their full sizes, each in a process of
+              its own (chip_smoke.py --program-worker PHASE DIR), one after
+              another beside the run phases above (started before
+              run_i6_subclusters, waited for before run_scale):
+              benchmarks/torch_scale1m.py in both modes (1,048,576 cells
+              drawn on the card), torch_scale100k.py (98,304 cells staged on
+              the card), torch_bayes100k.py (steps 18-19 at 100,000 cells)
+              and torch_scale100k_run.py (run() at 100,000 cells with the
+              plots); each line: seconds, cells/s, peak host RSS, the card's
+              peak memory, the program's gates and its launches
   run_scale   run() at 262,144 cells x 9,000 genes with those options
-              (benchmarks/scale1m_run.py's workload and gates, the cells cut
-              from 1M), in a process of its own (chip_smoke.py
-              --scale-worker DIR runs it alone): the planted calls, each
-              route taken, kernels 1, 2, 3 and 7 launched, each step's
-              seconds, peak host RSS and the card's memory before and after
+              (benchmarks/torch_scale1m_run.py's run and gates, the cells cut
+              from 1M, the counts drawn on the card), in a process of its
+              own (chip_smoke.py --scale-worker DIR runs it alone): the
+              planted calls, each route taken, kernels 1, 2, 3 and 7
+              launched, each step's seconds, peak host RSS and the card's
+              memory before and after
 Each path phase runs two warm-up chunks, then sets every launch count to 0
 just before it and reads them just after; besides its wall-clock rate it
 reports the chunks' mean device span (CUDA events).  Then the kernel table as one JSON line, the nvidia-smi line, and
@@ -1200,7 +1213,18 @@ def warned_run(obj, out_dir: str, device, kw: dict):
 
 
 def run_phases(dev, smi, out_root: Path) -> dict:
-    """The run() phases; returns each full-width phase's launches."""
+    """The run() phases and the scale programs; returns each full-width
+    phase's launches."""
+    # the scale programs run beside the host-bound phases below, one process
+    # after another, and are waited for before run_scale
+    programs = ProgramPhases(out_root).start()
+    try:
+        return _run_phases(dev, smi, out_root, programs)
+    finally:
+        programs.stop()
+
+
+def _run_phases(dev, smi, out_root: Path, programs: "ProgramPhases") -> dict:
     import filecmp
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
@@ -1501,8 +1525,12 @@ def run_phases(dev, smi, out_root: Path) -> dict:
                             cluster_by_groups=True, per_chr_hmm_subclusters=True,
                             BayesMaxPNormal=0)
     a_s = time.perf_counter() - t0
+    # (b) on half the cells (8 x 48 + 2 x 64 = 512): random_trees' host
+    # recursion took ~100 s a side on 1,024, and the scale programs now
+    # share the script's time limit
+    half, _ = make_run_object(go, RUN_CHECK_OBS // 2, RUN_CHECK_REF // 2)
     t0 = time.perf_counter()
-    b, _ = card_against_cpu(obj, out_root, "run_subcluster_reference_b", dev,
+    b, _ = card_against_cpu(half, out_root, "run_subcluster_reference_b", dev,
                             HMM=True, HMM_type="i6", analysis_mode="subclusters",
                             use_engine=False, num_ref_groups=2,
                             tumor_subcluster_partition_method="random_trees",
@@ -1511,7 +1539,8 @@ def run_phases(dev, smi, out_root: Path) -> dict:
                             mask_nonDE_genes=True, BayesMaxPNormal=0)
     b_s = time.perf_counter() - t0
     emit(phase="run_subcluster_reference", leiden_per_chr=dict(a, seconds=a_s),
-         op_by_op_random_trees=dict(b, seconds=b_s))
+         op_by_op_random_trees=dict(b, seconds=b_s, cells=half.num_cells))
+    del half
     torch.cuda.empty_cache()
 
     # ---- scale_reference: the 1M-cell options on these 1,024 cells ------
@@ -1524,7 +1553,9 @@ def run_phases(dev, smi, out_root: Path) -> dict:
     del obj
     torch.cuda.empty_cache()
 
-    # ---- run_scale: run() at 262,144 cells in a process of its own ------
+    # ---- the scale programs, then run_scale: run() at 262,144 cells in a --
+    # process of its own
+    launches.update(programs.finish(smi))
     launches["run_scale"] = run_scale_phase(smi, out_root)
     return launches
 
@@ -1592,68 +1623,47 @@ def scale_reference_phase(obj, dev, out_root: Path) -> None:
     emit(phase="scale_reference", **out)
 
 
-#: run_scale: benchmarks/scale1m_run.py's workload (BASELINE.json config 5)
-#: cut from 1M cells to 262,144, the smallest power of two at which run()'s
-#: own 2e9-element rules switch on lazy slicing and the in-place denoise
-#: (262,144 x ~8,940 genes after the cutoff, 2.34e9), for the script's time
-#: limit; and residual_memmap_gb 4.0 in place of 20.0, so that its 9.4 GB
-#: residual goes to disk as the 1M run's 36 GB one does
+#: run_scale: benchmarks/torch_scale1m_run.py's workload (BASELINE.json
+#: config 5) cut from 1M cells to 262,144, the smallest power of two at
+#: which run()'s own 2e9-element rules switch on lazy slicing and the
+#: in-place denoise (262,144 x ~8,940 genes after the cutoff, 2.34e9), for
+#: the script's time limit; residual_memmap_gb 4.0 in place of 20.0, so
+#: that its 9.4 GB residual goes to disk as the 1M run's 36 GB one does;
+#: no plots (as `--no-plot`)
 SCALE_CELLS = 262_144
-SCALE_GENES = 9000
 SCALE_MEMMAP_GB = 4.0
-#: the run's options, as scale1m_run.py:137-144 passes them (no plots: the
-#: card's machine has no matplotlib)
-SCALE_RUN_KW = dict(cutoff=1.0, analysis_mode="subclusters", HMM=True, denoise=True,
-                    tumor_subcluster_partition_method="leiden", no_plot=True,
-                    save_rds=False, inspect_subclusters=False,
-                    engine_chunk_cells=32768, residual_memmap_gb=SCALE_MEMMAP_GB,
-                    **SCALE_OPTIONS)
 SCALE_TIMEOUT_S = 900
 
 
-def synth_scale_counts(C: int, dev, G: int = SCALE_GENES, n_chr: int = 22,
-                       n_groups: int = 3, seed: int = SEED):
-    """benchmarks/scale1m_run.py's synth_counts_streamed (:37-86), copied
-    with the port's GeneOrder: G genes on n_chr chromosomes, 20% reference
-    cells in 2 groups, n_groups tumour groups with a planted loss (0.5x)
-    and gain (2x) of a chromosome each.  The Poisson counts are drawn on the
-    card from a seeded generator, a row block at a time, into one host u16
-    matrix (2.4e9 numpy draws would take most of a minute).  Returns
-    (gene order, counts [C, G] u16, reference groups, tumour groups,
-    {tumour group: (lost genes, gained genes)})."""
+def scale_program(name: str):
+    """benchmarks/<name>.py, the port's scale programs (imported from the
+    checkout; they import each other by module name)."""
+    import importlib
+
+    bench = str(ROOT / "benchmarks")
+    if bench not in sys.path:
+        sys.path.insert(0, bench)
+    return importlib.import_module(name)
+
+
+def synth_scale_counts(C: int, dev, n_groups: int = 3, seed: int = SEED):
+    """torch_scale1m_run.synth_counts_streamed's genome, groups and planted
+    CNVs (its gene means from numpy seed `seed`), the Poisson counts drawn
+    on the card from a generator seeded with `seed`, a row block at a time,
+    into one host u16 matrix (2.4e9 numpy draws would take most of a
+    minute).  Returns (gene order, counts [C, G] u16, reference groups,
+    tumour groups, {tumour group: (lost genes, gained genes)})."""
     import numpy as np
     import torch
 
-    from infercnv_tpu_torch.core.genome import GeneOrder
-
-    sizes = np.linspace(800, 120, n_chr).astype(int)
-    sizes = (sizes / sizes.sum() * G).astype(int)
-    sizes[0] += G - sizes.sum()
-    go = GeneOrder(
-        names=tuple(f"g{i}" for i in range(G)),
-        chr_names=tuple(f"chr{i+1}" for i in range(n_chr)),
-        chr_ids=np.repeat(np.arange(n_chr), sizes).astype(np.int32),
-        start=np.arange(G) * 1000, stop=np.arange(G) * 1000 + 500,
-    )
-    rng = np.random.default_rng(seed)
-    gene_means = rng.gamma(2.0, 8.0, G)
-    n_ref = C // 5
-    ranges = go.chr_ranges()
-    planted, tumor_groups = {}, {}
-    per_grp = (C - n_ref) // n_groups
-    factors = np.ones((n_groups + 1, G))  # row 0 = reference factor
-    for gi in range(n_groups):
-        lo = n_ref + gi * per_grp
-        hi = C if gi == n_groups - 1 else lo + per_grp
-        tumor_groups[f"malignant_{gi+1}"] = np.arange(lo, hi)
-        dci, aci = (2 * gi + 1) % n_chr, (2 * gi + 2) % n_chr
-        db, de = ranges[dci]
-        ab, ae = ranges[aci]
-        factors[gi + 1, db:de] = 0.5
-        factors[gi + 1, ab:ae] = 2.0
-        planted[f"malignant_{gi+1}"] = (np.arange(db, de), np.arange(ab, ae))
+    s100k = scale_program("torch_scale100k_run")
+    s1m_run = scale_program("torch_scale1m_run")
+    go = s100k.synth_genome()
+    G = go.num_genes
+    gene_means = np.random.default_rng(seed).gamma(2.0, 8.0, G)
+    ref_groups, tumor_groups, planted, factors = s100k.tumour_layout(go, C, n_groups)
     counts = np.empty((C, G), np.uint16)
-    bounds = [0, n_ref] + [n_ref + gi * per_grp for gi in range(1, n_groups)] + [C]
+    bounds = s1m_run.row_bounds(C, n_groups)
     gen = torch.Generator(device=dev).manual_seed(seed)
     for row_grp in range(n_groups + 1):
         lo, hi = bounds[row_grp], bounds[row_grp + 1]
@@ -1662,32 +1672,16 @@ def synth_scale_counts(C: int, dev, G: int = SCALE_GENES, n_chr: int = 22,
             e = min(b + CHUNK, hi)
             block = make_counts(lam[None, :].expand(e - b, G).contiguous(), gen)
             counts[b:e] = block.view(torch.int16).cpu().numpy().view(np.uint16)
-    ref_groups = {"normal_a": np.arange(0, n_ref // 2),
-                  "normal_b": np.arange(n_ref // 2, n_ref)}
     return go, counts, ref_groups, tumor_groups, planted
-
-
-def machine_room(path: Path) -> dict:
-    """The machine's RAM (/proc/meminfo, as `free` reads it) and the free
-    disk under `path`, in GB."""
-    mem = {}
-    with open("/proc/meminfo") as f:
-        for line in f:
-            k, v = line.split(":")
-            mem[k] = int(v.split()[0]) * 1024
-    return {"ram_total_gb": mem["MemTotal"] / 1e9,
-            "ram_available_gb": mem["MemAvailable"] / 1e9,
-            "disk_free_gb": shutil.disk_usage(path).free / 1e9}
 
 
 def scale_worker(argv) -> int:
     """run_scale's process: chip_smoke.py --scale-worker DIR [DEVICE] (the
-    first card by default).  Makes the counts, runs run() at SCALE_RUN_KW,
-    gates the result as benchmarks/scale1m_run.py:148-171 does and the
-    routes the options take, and writes DIR/result.json; a failed gate
-    exits non-zero."""
+    first card by default).  Makes the counts, runs run() as
+    torch_scale1m_run.run_scaled does (the memmap at SCALE_MEMMAP_GB, no
+    plots), gates the result with its gates and the routes the options
+    take, and writes DIR/result.json; a failed gate exits non-zero."""
     import gc
-    import resource
 
     import numpy as np
     import torch
@@ -1697,9 +1691,9 @@ def scale_worker(argv) -> int:
         return fail("scale worker: no CUDA device")
     sys.path.insert(0, str(ROOT))
     from infercnv_tpu_torch.core.object import InferCNV
-    from infercnv_tpu_torch.runner.pipeline import run as run_pipeline
     from infercnv_tpu_torch.subcluster import partition
 
+    s1m_run = scale_program("torch_scale1m_run")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out_dir = Path(argv[0])
@@ -1707,8 +1701,9 @@ def scale_worker(argv) -> int:
     shutil.rmtree(run_dir, ignore_errors=True)
     run_dir.mkdir(parents=True)
     C = SCALE_CELLS
-    room = machine_room(run_dir)
-    counts_gb, memmap_gb = C * SCALE_GENES * 2 / 1e9, C * SCALE_GENES * 4 / 1e9
+    G = s1m_run.s100k.GENES
+    room = s1m_run.machine_room(run_dir)
+    counts_gb, memmap_gb = C * G * 2 / 1e9, C * G * 4 / 1e9
     # the counts, step 2's float32 copy and its gene-filtered counts, and
     # the memmap's pages: a margin of twice the counts and the memmap
     require(room["ram_available_gb"] > 2 * (counts_gb + memmap_gb),
@@ -1731,10 +1726,8 @@ def scale_worker(argv) -> int:
     reset_launches()
     partition.ROWS_FROM = None
     with LogLines() as lines:
-        t0 = time.perf_counter()
-        res = run_pipeline(obj, out_dir=str(run_dir), device=dev, **SCALE_RUN_KW)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        res, wall, failed = s1m_run.run_scaled(obj, str(run_dir), dev, no_plot=True,
+                                               memmap_gb=SCALE_MEMMAP_GB)
     launches = read_launches()
     peak_card = torch.cuda.max_memory_allocated()
     held_after = torch.cuda.memory_allocated()
@@ -1752,23 +1745,10 @@ def scale_worker(argv) -> int:
               "lazy_slice": any(LAZY_SLICE in m for m in lines.lines),
               "rows_from": partition.ROWS_FROM,
               "elements": int(expr.size)}
-    # the reference script's gates (scale1m_run.py:148-171)
-    st = res.hmm_states
-    n_sub = sum(len(v) for v in final.tumor_subclusters["subclusters"].values())
-    gene_lut = {n: i for i, n in enumerate(final.gene_order.names)}
-    calls = {}
-    for g, idx in tumor_groups.items():
-        del_genes, amp_genes = planted[g]
-        dsel = [gene_lut[f"g{i}"] for i in del_genes if f"g{i}" in gene_lut]
-        asel = [gene_lut[f"g{i}"] for i in amp_genes if f"g{i}" in gene_lut]
-        sub = idx[::max(1, idx.size // 20000)]
-        calls[g] = {"del": float((st[np.ix_(sub, dsel)] < 3).mean()),
-                    "amp": float((st[np.ix_(sub, asel)] > 3).mean())}
-    ref_idx = final.all_ref_idx()
-    neutral = float((st[ref_idx[::max(1, ref_idx.size // 20000)]] == 3).mean())
-    reports = sorted(p.name for p in run_dir.glob("*pred_cnv_regions.dat"))
+    # the program's gates (scale1m_run.py:146-174)
+    gates = s1m_run.gates(res, str(run_dir), tumor_groups, planted, True, failed)
     step_seconds = res.timer.records
-    del st, expr, final, res
+    del expr, final, res
     gc.collect()
     torch.cuda.synchronize()
     held_after_gc = torch.cuda.memory_allocated()
@@ -1782,25 +1762,20 @@ def scale_worker(argv) -> int:
         card=nvidia_smi(), cells=C, genes=int(routes["elements"] // C),
         machine=room, make_counts_s=make_s, wall_s=wall,
         step_seconds=step_seconds,
-        peak_host_rss_gb=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9,
+        peak_host_rss_gb=s1m_run.s1m.peak_rss_gb(),
         peak_card_gb=peak_card / 1e9,
         card_allocated_gb={"before_run": held_before / 1e9, "after_return": held_after / 1e9,
                            "after_gc": held_after_gc / 1e9,
                            "without_the_smooth_weights_cache": held_without_weights / 1e9,
                            "reserved_after_gc": torch.cuda.memory_reserved() / 1e9},
-        launches=launches, routes=routes, called=calls, reference_neutral=neutral,
-        subclusters=n_sub, region_reports=reports)
+        launches=launches, routes=routes, gates=gates)
     (out_dir / "result.json").write_text(json.dumps(result))
     require(mm_bytes == 4 * routes["elements"] and routes["expr_is_the_memmap"]
             and routes["kernel_direct_f16"] and routes["lazy_slice"]
             and routes["rows_from"] == "host", f"run_scale: routes not taken: {routes}")
     for k in ("residual_fused", "viterbi", "smooth_banded", "row_median"):
         require(launches[k] > 0, f"run_scale: {k} was not launched")
-    require(all(v["del"] > 0.7 and v["amp"] > 0.7 for v in calls.values()),
-            f"run_scale: planted CNVs not all called: {calls}")
-    require(neutral > 0.95, f"run_scale: reference cells {neutral:.3f} neutral")
-    require(n_sub >= len(tumor_groups), f"run_scale: {n_sub} subclusters")
-    require(bool(reports), "run_scale: region reports missing")
+    require(s1m_run.s100k.gates_passed(gates), f"run_scale: gates failed: {gates}")
     return 0
 
 
@@ -1832,6 +1807,144 @@ def run_scale_phase(smi, out_root: Path) -> dict:
     (out_dir / "run" / MEMMAP_NAME).unlink(missing_ok=True)
     emit(phase="run_scale", process_s=seconds, **result)
     return result["launches"]
+
+
+# ---------------------------------------------------------------------------
+# the scale programs: benchmarks/torch_scale1m.py (both modes),
+# torch_scale100k.py, torch_bayes100k.py and torch_scale100k_run.py at their
+# full sizes, each in a process of its own
+# ---------------------------------------------------------------------------
+
+#: phase: (program, its arguments, the kernels it must launch)
+PROGRAMS = {
+    "scale1m_cells": ("torch_scale1m", ["cells"],
+                      ("residual_fused", "viterbi", "smooth_banded", "row_median")),
+    "scale1m_subclusters": ("torch_scale1m", ["subclusters"],
+                            ("residual_fused", "viterbi", "smooth_banded", "row_median")),
+    "scale100k": ("torch_scale100k", [],
+                  ("residual_fused", "viterbi", "smooth_banded", "row_median")),
+    "bayes100k": ("torch_bayes100k", [], ("smooth_banded", "row_median")),
+    "scale100k_run": ("torch_scale100k_run", [],
+                      ("residual_fused", "viterbi", "smooth_banded", "row_median")),
+}
+PROGRAM_TIMEOUT_S = 600
+
+
+def program_worker(argv) -> int:
+    """A program phase's process: chip_smoke.py --program-worker PHASE DIR
+    [DEVICE].  Runs the program's main at its full size (its output goes
+    to the worker's log), with the launch counts set to 0 just before it;
+    writes DIR/result.json: its exit code, its JSON lines and the launches."""
+    import contextlib
+    import io
+
+    phase, out_dir = argv[0], Path(argv[1])
+    name, args, _ = PROGRAMS[phase]
+    sys.path.insert(0, str(ROOT))
+    prog = scale_program(name)
+    if phase == "scale100k_run":
+        args = [*args, "--out_dir", str(out_dir / "run")]
+    if len(argv) > 2:
+        args = [*args, "--device", argv[2]]
+    reset_launches()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = prog.main(args)
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    text = out.getvalue()
+    print(text, flush=True)
+    lines = [json.loads(s[2:] if s.startswith("# {") else s)
+             for s in text.splitlines() if s.startswith(("{", "# {"))]
+    (out_dir / "result.json").write_text(json.dumps(
+        dict(rc=rc, seconds=seconds, lines=lines, launches=launches)))
+    return rc
+
+
+class ProgramPhases:
+    """The program phases, one process after another, in a thread beside
+    the host-bound run() phases of this process (started by start(),
+    waited for by finish(); stop() kills the running process)."""
+
+    def __init__(self, out_root: Path):
+        import threading
+
+        self.out_root = out_root
+        self.results = {}
+        self.proc = None
+        self.stopped = False
+        self.lock = threading.Lock()   # stop() against the start of a process
+        self.thread = threading.Thread(target=self._work, daemon=True)
+
+    def start(self):
+        self.thread.start()
+        return self
+
+    def _work(self):
+        for phase in PROGRAMS:
+            out_dir = self.out_root / phase
+            shutil.rmtree(out_dir, ignore_errors=True)
+            out_dir.mkdir(parents=True)
+            t0 = time.perf_counter()
+            with open(out_dir / "worker.log", "w") as f:
+                with self.lock:
+                    if self.stopped:
+                        return
+                    self.proc = subprocess.Popen(
+                        [sys.executable, str(Path(__file__).resolve()), "--program-worker",
+                         phase, str(out_dir)], stdout=f, stderr=subprocess.STDOUT)
+                try:
+                    rc = self.proc.wait(timeout=PROGRAM_TIMEOUT_S)
+                except subprocess.TimeoutExpired:
+                    self.proc.kill()
+                    self.proc.wait()
+                    rc = f"killed after {PROGRAM_TIMEOUT_S} s"
+            path = out_dir / "result.json"
+            self.results[phase] = (rc, time.perf_counter() - t0,
+                                   json.loads(path.read_text()) if path.exists() else None)
+
+    def stop(self):
+        with self.lock:
+            self.stopped = True
+            proc = self.proc
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        self.thread.join()
+
+    def finish(self, smi) -> dict:
+        """Waits for the programs, prints one line a phase (seconds, cells/s,
+        peak host RSS, the card's peak memory, the gates, the launches) and
+        gates them; returns each phase's launches."""
+        self.thread.join()
+        launches = {}
+        for phase, (name, _args, kernels) in PROGRAMS.items():
+            rc, process_s, result = self.results[phase]
+            if rc != 0 or result is None:
+                log = self.out_root / phase / "worker.log"
+                tail = log.read_text().splitlines()[-30:] if log.exists() else []
+                print(f"chip_smoke: {phase}: exited with {rc}:\n" + "\n".join(tail),
+                      file=sys.stderr, flush=True)
+            require(result is not None, f"{phase}: the worker exited with {rc}")
+            info = {}
+            for line in result["lines"]:
+                info.update(line)
+            emit(phase=phase, card=smi, program=f"benchmarks/{name}.py", rc=rc,
+                 process_s=process_s, seconds=info.get("seconds", info.get("wall_s")),
+                 cells=info.get("cells"), cells_per_sec=info.get("cells_per_sec"),
+                 peak_host_rss_gb=info.get("peak_host_rss_gb"),
+                 peak_card_gb=info.get("peak_card_gb"), gates=info.get("gates"),
+                 launches=result["launches"],
+                 **{k: info[k] for k in ("metric", "value", "unit", "step_timings",
+                                         "parts_s", "regions", "subclusters", "n_loss",
+                                         "n_gain", "norm_factor") if k in info})
+            require(rc == 0, f"{phase}: the program exited with {rc} (its gates: "
+                    f"{info.get('gates')})")
+            for k in kernels:
+                require(result["launches"][k] > 0, f"{phase}: {k} was not launched")
+            launches[phase] = result["launches"]
+        return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3173,9 +3286,11 @@ def main() -> int:
         import torch
     except ImportError:
         return fail("PyTorch is not installed")
-    if sys.argv[1:2] in (["--worker"], ["--scale-worker"]):
+    workers = {"--worker": worker, "--scale-worker": scale_worker,
+               "--program-worker": program_worker}
+    if sys.argv[1:2] and sys.argv[1] in workers:
         try:
-            return (worker if sys.argv[1] == "--worker" else scale_worker)(sys.argv[2:])
+            return workers[sys.argv[1]](sys.argv[2:])
         except Check as e:
             return fail(str(e))
     if not torch.cuda.is_available():

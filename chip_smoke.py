@@ -109,8 +109,8 @@ Phases, each printing one JSON line:
   scale1m_cells, scale1m_subclusters, scale100k, bayes100k, scale100k_run
               the scale programs at their full sizes, each in a process of
               its own (chip_smoke.py --program-worker PHASE DIR), one after
-              another beside the run phases above (started before
-              run_i6_subclusters, waited for before run_scale):
+              another after run_scale, beside the run phases above
+              (started before run_i6_subclusters, waited for at the end):
               benchmarks/torch_scale1m.py in both modes (1,048,576 cells
               drawn on the card), torch_scale100k.py (98,304 cells staged on
               the card), torch_bayes100k.py (steps 18-19 at 100,000 cells)
@@ -120,10 +120,17 @@ Phases, each printing one JSON line:
   run_scale   run() at 262,144 cells x 9,000 genes with those options
               (benchmarks/torch_scale1m_run.py's run and gates, the cells cut
               from 1M, the counts drawn on the card), in a process of its
-              own (chip_smoke.py --scale-worker DIR runs it alone): the
+              own, first in the scale programs' queue beside the run phases
+              (chip_smoke.py --scale-worker DIR runs it alone): the
               planted calls, each route taken, kernels 1, 2, 3 and 7
               launched, each step's seconds, peak host RSS and the card's
-              memory before and after
+              memory before and after; before it, a line run_scale_memory
+              with each step's resident set (VmRSS, RssAnon, RssFile) and
+              the gate on it after steps 4-14 (SCALE_RSS_RESIDUAL_FRACTION)
+  leiden_fidelity  scripts/torch_leiden_fidelity.py at 1,000 and 5,000
+              cells (after entry_points): the SNN components, the Leiden
+              clusters, purity and the CPM scores; the Leiden CPM at least
+              the components' and the planted partition's
 Each path phase runs two warm-up chunks, then sets every launch count to 0
 just before it and reads them just after; besides its wall-clock rate it
 reports the chunks' mean device span (CUDA events).  Then the kernel table as one JSON line, the nvidia-smi line, and
@@ -1215,8 +1222,8 @@ def warned_run(obj, out_dir: str, device, kw: dict):
 def run_phases(dev, smi, out_root: Path) -> dict:
     """The run() phases and the scale programs; returns each full-width
     phase's launches."""
-    # the scale programs run beside the host-bound phases below, one process
-    # after another, and are waited for before run_scale
+    # run_scale and the scale programs run beside the host-bound phases
+    # below, one process after another, and are waited for at the end
     programs = ProgramPhases(out_root).start()
     try:
         return _run_phases(dev, smi, out_root, programs)
@@ -1552,11 +1559,11 @@ def _run_phases(dev, smi, out_root: Path, programs: "ProgramPhases") -> dict:
     entry_points_phase(obj, dev, smi, out_root, mf_timing)
     del obj
     torch.cuda.empty_cache()
+    leiden_fidelity_phase(dev, smi)
 
-    # ---- the scale programs, then run_scale: run() at 262,144 cells in a --
-    # process of its own
+    # ---- run_scale (run() at 262,144 cells) and the scale programs, each --
+    # in a process of its own beside the phases above
     launches.update(programs.finish(smi))
-    launches["run_scale"] = run_scale_phase(smi, out_root)
     return launches
 
 
@@ -1633,6 +1640,24 @@ def scale_reference_phase(obj, dev, out_root: Path) -> None:
 SCALE_CELLS = 262_144
 SCALE_MEMMAP_GB = 4.0
 SCALE_TIMEOUT_S = 900
+#: run_scale's bound on the resident set at the end of steps 4-14 (the
+#: 04-14_engine_transform and 04-14_hspike_mirror records), from the
+#: accounting of ROADMAP C5: what the process held just before run()
+#: (Python, torch, the CUDA context; the counts are on disk), plus the
+#: engine's pinned staging (two float32 buffers in, two float16 out, of
+#: SCALE_RUN_CHUNK rows), plus step 2's gene-filtered u16 counts (the run
+#: keeps them as obj.counts, as the reference does unless save_final_rds
+#: is off), plus this fraction of the residual's bytes for the rest (the
+#: CUDA libraries' host memory, the hspike: 3.3 GB of the 16.77 GB measured
+#: on an H100 host).  Without the file I/O of utils/memmap.py the line also
+#: held the caller's counts and every page of the memmap (4.7 and 9.4 GB
+#: here; 30.1 GB in all on the same host), each more than the margin left.
+SCALE_RSS_RESIDUAL_FRACTION = 0.5
+#: the engine's chunk in run_scale (torch_scale1m_run.SCALE_KW)
+SCALE_RUN_CHUNK = 32768
+#: run_scale's counts file (as torch_scale1m_run.py --counts_cache writes
+#: one), deleted after the run
+SCALE_COUNTS_FILE = "_counts.u16.npy"
 
 
 def scale_program(name: str):
@@ -1646,15 +1671,19 @@ def scale_program(name: str):
     return importlib.import_module(name)
 
 
-def synth_scale_counts(C: int, dev, n_groups: int = 3, seed: int = SEED):
+def synth_scale_counts(C: int, dev, path: Path, n_groups: int = 3, seed: int = SEED):
     """torch_scale1m_run.synth_counts_streamed's genome, groups and planted
     CNVs (its gene means from numpy seed `seed`), the Poisson counts drawn
-    on the card from a generator seeded with `seed`, a row block at a time,
-    into one host u16 matrix (2.4e9 numpy draws would take most of a
-    minute).  Returns (gene order, counts [C, G] u16, reference groups,
-    tumour groups, {tumour group: (lost genes, gained genes)})."""
+    on the card from a generator seeded with `seed`, a row block at a time
+    (2.4e9 numpy draws would take most of a minute), into the .npy file
+    `path` and handed back as a read-only disk memmap of it, as
+    torch_scale1m_run.counts_from hands run() its counts.  Returns (gene
+    order, counts [C, G] u16, reference groups, tumour groups, {tumour
+    group: (lost genes, gained genes)})."""
     import numpy as np
     import torch
+
+    from infercnv_tpu_torch.utils.memmap import write_rows
 
     s100k = scale_program("torch_scale100k_run")
     s1m_run = scale_program("torch_scale1m_run")
@@ -1662,7 +1691,7 @@ def synth_scale_counts(C: int, dev, n_groups: int = 3, seed: int = SEED):
     G = go.num_genes
     gene_means = np.random.default_rng(seed).gamma(2.0, 8.0, G)
     ref_groups, tumor_groups, planted, factors = s100k.tumour_layout(go, C, n_groups)
-    counts = np.empty((C, G), np.uint16)
+    counts = np.lib.format.open_memmap(path, mode="w+", dtype=np.uint16, shape=(C, G))
     bounds = s1m_run.row_bounds(C, n_groups)
     gen = torch.Generator(device=dev).manual_seed(seed)
     for row_grp in range(n_groups + 1):
@@ -1671,8 +1700,9 @@ def synth_scale_counts(C: int, dev, n_groups: int = 3, seed: int = SEED):
         for b in range(lo, hi, CHUNK):
             e = min(b + CHUNK, hi)
             block = make_counts(lam[None, :].expand(e - b, G).contiguous(), gen)
-            counts[b:e] = block.view(torch.int16).cpu().numpy().view(np.uint16)
-    return go, counts, ref_groups, tumor_groups, planted
+            write_rows(counts, b, block.view(torch.int16).cpu().numpy().view(np.uint16))
+    del counts
+    return go, np.load(path, mmap_mode="r"), ref_groups, tumor_groups, planted
 
 
 def scale_worker(argv) -> int:
@@ -1712,8 +1742,11 @@ def scale_worker(argv) -> int:
     require(room["disk_free_gb"] > 1.2 * memmap_gb,
             f"run_scale: {room['disk_free_gb']:.1f} GB of free disk cannot hold the "
             f"{memmap_gb:.1f} GB memmap")
+    from infercnv_tpu_torch.utils.profiling import memory_gb
+
     t0 = time.perf_counter()
-    go, counts, ref_groups, tumor_groups, planted = synth_scale_counts(C, dev)
+    go, counts, ref_groups, tumor_groups, planted = synth_scale_counts(
+        C, dev, run_dir / SCALE_COUNTS_FILE)
     torch.cuda.synchronize()
     make_s = time.perf_counter() - t0
     obj = InferCNV(expr=counts, counts=counts, gene_order=go,
@@ -1721,6 +1754,8 @@ def scale_worker(argv) -> int:
                    ref_groups=ref_groups, obs_groups=tumor_groups)
     del counts
     torch.cuda.empty_cache()
+    gc.collect()
+    rss_before = memory_gb()
     held_before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -1729,6 +1764,8 @@ def scale_worker(argv) -> int:
         res, wall, failed = s1m_run.run_scaled(obj, str(run_dir), dev, no_plot=True,
                                                memmap_gb=SCALE_MEMMAP_GB)
     launches = read_launches()
+    del obj
+    (run_dir / SCALE_COUNTS_FILE).unlink()
     peak_card = torch.cuda.max_memory_allocated()
     held_after = torch.cuda.memory_allocated()
     final = res.infercnv_obj
@@ -1748,6 +1785,16 @@ def scale_worker(argv) -> int:
     # the program's gates (scale1m_run.py:146-174)
     gates = s1m_run.gates(res, str(run_dir), tumor_groups, planted, True, failed)
     step_seconds = res.timer.records
+    # the resident set at the end of each step ([timing] lines), and the
+    # gate on steps 4-14 (SCALE_RSS_RESIDUAL_FRACTION)
+    memory = [[r["step"], r.get("rss_gb"), r.get("anon_gb"), r.get("file_gb"),
+               r.get("peak_gb")] for r in step_seconds if "rss_gb" in r]
+    G_kept = int(routes["elements"] // C)
+    staging_gb = 2 * SCALE_RUN_CHUNK * G_kept * (4 + 2) / 1e9
+    kept_counts_gb = 2 * routes["elements"] / 1e9
+    rss_bound = (rss_before.get("rss_gb", 0.0) + staging_gb + kept_counts_gb
+                 + SCALE_RSS_RESIDUAL_FRACTION * 4 * routes["elements"] / 1e9)
+    rss_engine = max(r[1] for r in memory if r[0].startswith("04-14_"))
     del expr, final, res
     gc.collect()
     torch.cuda.synchronize()
@@ -1762,6 +1809,9 @@ def scale_worker(argv) -> int:
         card=nvidia_smi(), cells=C, genes=int(routes["elements"] // C),
         machine=room, make_counts_s=make_s, wall_s=wall,
         step_seconds=step_seconds,
+        memory_gb=dict(before_run=rss_before, steps=memory, after_04_14=rss_engine,
+                       bound_after_04_14=rss_bound, staging=staging_gb,
+                       kept_counts=kept_counts_gb),
         peak_host_rss_gb=s1m_run.s1m.peak_rss_gb(),
         peak_card_gb=peak_card / 1e9,
         card_allocated_gb={"before_run": held_before / 1e9, "after_return": held_after / 1e9,
@@ -1776,35 +1826,52 @@ def scale_worker(argv) -> int:
     for k in ("residual_fused", "viterbi", "smooth_banded", "row_median"):
         require(launches[k] > 0, f"run_scale: {k} was not launched")
     require(s1m_run.s100k.gates_passed(gates), f"run_scale: gates failed: {gates}")
+    require(rss_engine <= rss_bound,
+            f"run_scale: {rss_engine:.2f} GB resident after steps 4-14, above the "
+            f"bound of {rss_bound:.2f} GB (before run() {rss_before}, staging "
+            f"{staging_gb:.2f} GB, counts kept {kept_counts_gb:.2f} GB)")
     return 0
 
 
-def run_scale_phase(smi, out_root: Path) -> dict:
-    """run() at 262,144 cells x 9,000 genes with the 1M-cell configuration's
-    options (scale_worker), in a process of its own, so that its peak host
-    RSS and its card memory are its own; returns its launches."""
-    out_dir = out_root / "run_scale"
-    shutil.rmtree(out_dir, ignore_errors=True)
-    out_dir.mkdir(parents=True)
-    log = out_dir / "worker.log"
-    t0 = time.perf_counter()
-    with open(log, "w") as f:
-        try:
-            rc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                                 "--scale-worker", str(out_dir)], stdout=f,
-                                stderr=subprocess.STDOUT, timeout=SCALE_TIMEOUT_S).returncode
-        except subprocess.TimeoutExpired:
-            rc = f"killed after {SCALE_TIMEOUT_S} s"
-    seconds = time.perf_counter() - t0
+#: leiden_fidelity: scripts/torch_leiden_fidelity.py at these sizes
+FIDELITY_SIZES = (1000, 5000)
+
+
+def leiden_fidelity_phase(dev, smi) -> None:
+    """scripts/torch_leiden_fidelity.py (a port of scripts/leiden_fidelity.py)
+    at FIDELITY_SIZES on the card: step 15's Leiden route (PCA and kNN on
+    the card, SNN and the native Leiden on the host) on planted subclones;
+    at each size the Leiden CPM must be at least the SNN components' and
+    the planted partition's."""
+    scripts = str(ROOT / "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    import importlib
+
+    fid = importlib.import_module("torch_leiden_fidelity")
+    rows = [fid.measure(n, fid.K_PLANTED, dev) for n in FIDELITY_SIZES]
+    emit(phase="leiden_fidelity", card=smi, script="scripts/torch_leiden_fidelity.py",
+         sizes=rows)
+    for r in rows:
+        require(fid.passed(r), f"leiden_fidelity: the CPM assertion failed: {r}")
+
+
+def scale_result(smi, out_dir: Path, rc, seconds: float) -> dict:
+    """run_scale's lines and gates from its worker (scale_worker, run by
+    ProgramPhases as the first process of its queue): a line with each
+    step's resident set, then the phase's line; returns its launches."""
     result_path = out_dir / "result.json"
     result = json.loads(result_path.read_text()) if result_path.exists() else None
     if rc != 0:
-        tail = log.read_text().splitlines()[-30:]
+        log = out_dir / "worker.log"
+        tail = log.read_text().splitlines()[-30:] if log.exists() else []
         print("\n".join(tail), file=sys.stderr, flush=True)
         if result is not None:
             emit(phase="run_scale", process_s=seconds, **result)
     require(rc == 0 and result is not None, f"run_scale: the worker exited with {rc}")
     (out_dir / "run" / MEMMAP_NAME).unlink(missing_ok=True)
+    emit(phase="run_scale_memory", card=smi, columns=["step", "rss_gb", "anon_gb", "file_gb", "peak_gb"],
+         **result["memory_gb"])
     emit(phase="run_scale", process_s=seconds, **result)
     return result["launches"]
 
@@ -1863,9 +1930,11 @@ def program_worker(argv) -> int:
 
 
 class ProgramPhases:
-    """The program phases, one process after another, in a thread beside
-    the host-bound run() phases of this process (started by start(),
-    waited for by finish(); stop() kills the running process)."""
+    """run_scale, then the program phases, one process after another, in a
+    thread beside the host-bound run() phases of this process (started by
+    start(), waited for by finish(); stop() kills the running process).
+    run_scale goes first: it is the longest, and each process's memory is
+    its own."""
 
     def __init__(self, out_root: Path):
         import threading
@@ -1882,24 +1951,31 @@ class ProgramPhases:
         return self
 
     def _work(self):
-        for phase in PROGRAMS:
+        script = str(Path(__file__).resolve())
+        for phase in ("run_scale", *PROGRAMS):
             out_dir = self.out_root / phase
             shutil.rmtree(out_dir, ignore_errors=True)
             out_dir.mkdir(parents=True)
+            if phase == "run_scale":
+                cmd, limit = [sys.executable, script, "--scale-worker", str(out_dir)], SCALE_TIMEOUT_S
+            else:
+                cmd = [sys.executable, script, "--program-worker", phase, str(out_dir)]
+                limit = PROGRAM_TIMEOUT_S
             t0 = time.perf_counter()
             with open(out_dir / "worker.log", "w") as f:
                 with self.lock:
                     if self.stopped:
                         return
-                    self.proc = subprocess.Popen(
-                        [sys.executable, str(Path(__file__).resolve()), "--program-worker",
-                         phase, str(out_dir)], stdout=f, stderr=subprocess.STDOUT)
+                    self.proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)
                 try:
-                    rc = self.proc.wait(timeout=PROGRAM_TIMEOUT_S)
+                    rc = self.proc.wait(timeout=limit)
                 except subprocess.TimeoutExpired:
                     self.proc.kill()
                     self.proc.wait()
-                    rc = f"killed after {PROGRAM_TIMEOUT_S} s"
+                    rc = f"killed after {limit} s"
+            if phase == "run_scale":
+                self.results[phase] = (rc, time.perf_counter() - t0, None)
+                continue
             path = out_dir / "result.json"
             self.results[phase] = (rc, time.perf_counter() - t0,
                                    json.loads(path.read_text()) if path.exists() else None)
@@ -1916,7 +1992,8 @@ class ProgramPhases:
     def finish(self, smi) -> dict:
         """Waits for the programs, prints one line a phase (seconds, cells/s,
         peak host RSS, the card's peak memory, the gates, the launches) and
-        gates them; returns each phase's launches."""
+        gates them, then run_scale's (scale_result); returns each phase's
+        launches."""
         self.thread.join()
         launches = {}
         for phase, (name, _args, kernels) in PROGRAMS.items():
@@ -1944,6 +2021,8 @@ class ProgramPhases:
             for k in kernels:
                 require(result["launches"][k] > 0, f"{phase}: {k} was not launched")
             launches[phase] = result["launches"]
+        rc, seconds, _ = self.results["run_scale"]
+        launches["run_scale"] = scale_result(smi, self.out_root / "run_scale", rc, seconds)
         return launches
 
 

@@ -22,9 +22,21 @@ import numpy as np
 
 from infercnv_tpu_torch.core.genome import GeneOrder, order_reduce
 from infercnv_tpu_torch.utils.logging import log_info, log_warn
+from infercnv_tpu_torch.utils.memmap import read_rows
 
 
 CellGroups = Dict[str, np.ndarray]  # group name -> int32 cell indices
+
+
+def _take_columns(x: np.ndarray, cols: np.ndarray, block_rows: int = 16384) -> np.ndarray:
+    """np.take(x, cols, axis=1) as a new matrix, taken in row blocks (a
+    disk memmap's rows read through its file, utils/memmap.py).  np.take
+    is ~4x faster than fancy column indexing for wide row-major matrices
+    (measured: 21s vs 86s at 100k x 10k)."""
+    out = np.empty((x.shape[0], cols.size), x.dtype)
+    for b in range(0, x.shape[0], block_rows):
+        np.take(read_rows(x, b, b + block_rows), cols, axis=1, out=out[b:b + block_rows])
+    return out
 
 
 @dataclasses.dataclass
@@ -121,13 +133,11 @@ class InferCNV:
             keep[remove_idx] = False
         keep_idx = np.nonzero(keep)[0]
         counts_was_expr = self.counts is not None and self.counts is self.expr
-        # np.take is ~4x faster than fancy column indexing for wide
-        # row-major matrices (measured: 21s vs 86s at 100k x 10k)
-        self.expr = np.take(self.expr, keep_idx, axis=1)
+        self.expr = _take_columns(self.expr, keep_idx)
         if counts_was_expr:
             self.counts = self.expr
         elif self.counts is not None and self.counts.shape[1] == keep.shape[0]:
-            self.counts = np.take(self.counts, keep_idx, axis=1)
+            self.counts = _take_columns(self.counts, keep_idx)
         self.gene_order = self.gene_order.subset(keep_idx)
         return self
 

@@ -49,6 +49,7 @@ from infercnv_tpu_torch.device import DeviceLike, resolve_device
 from infercnv_tpu_torch.models import hmm as hmm_mod
 from infercnv_tpu_torch.report.regions import get_predicted_cnv_regions
 from infercnv_tpu_torch.utils.logging import log_info, log_warn
+from infercnv_tpu_torch.utils.memmap import gather_rows, read_rows
 
 N_CHAINS_I6 = 6
 N_CHAINS_I3 = 3
@@ -152,7 +153,8 @@ def region_loglik(expr_cg: np.ndarray, regions: List[dict],
     with X1 = x @ RG^T and X2 = x^2 @ RG^T, two matmuls streamed over cell
     chunks.  Only the rows the block's regions read are uploaded (unless
     they cover most of the matrix or their copy would pass ~6 GB); each
-    region's cell group is padded to the widest group.
+    region's cell group is padded to the widest group.  A disk memmap's
+    rows are read through its file (utils/memmap.py).
 
     Returns (ll [R, Cmax, S], cell_mask [R, Cmax]) as float32 tensors."""
     dev = resolve_device(device)
@@ -169,13 +171,13 @@ def region_loglik(expr_cg: np.ndarray, regions: List[dict],
     if use_subset:
         pos = np.full(C, -1, np.int64)
         pos[union] = np.arange(union.size)
-        x_src = expr_cg[union]
+        x_src = gather_rows(expr_cg, union)
     else:
         pos = None
         x_src = expr_cg
     parts1, parts2 = [], []
     for b in range(0, x_src.shape[0], chunk):
-        xc = torch.as_tensor(np.ascontiguousarray(x_src[b:b + chunk]),
+        xc = torch.as_tensor(np.ascontiguousarray(read_rows(x_src, b, b + chunk)),
                              dtype=torch.float32).to(dev)
         parts1.append(xc @ RGT)
         parts2.append((xc * xc) @ RGT)

@@ -37,6 +37,7 @@ import torch
 from infercnv_tpu_torch.core.genome import GeneOrder
 from infercnv_tpu_torch.device import DeviceLike, resolve_device
 from infercnv_tpu_torch.utils.logging import log_info
+from infercnv_tpu_torch.utils.memmap import gather_rows
 
 I6_LEVELS = ("cnv:0.01", "cnv:0.5", "cnv:1", "cnv:1.5", "cnv:2", "cnv:3")
 I6_PROXY_VALUES = np.array([0.0, 0.5, 1.0, 1.5, 2.0, 3.0])
@@ -301,7 +302,8 @@ def _group_mean_rows(expr_cg: np.ndarray, groups: Dict[str, np.ndarray]
                      ) -> Tuple[np.ndarray, List[str], List[np.ndarray]]:
     names = list(groups.keys())
     idxs = [np.asarray(groups[n]) for n in names]
-    rows = np.stack([expr_cg[ix].mean(axis=0) for ix in idxs])
+    # a disk memmap's rows are read through its file (utils/memmap.py)
+    rows = np.stack([gather_rows(expr_cg, ix).mean(axis=0) for ix in idxs])
     return rows, names, idxs
 
 

@@ -22,6 +22,7 @@ import torch
 
 from infercnv_tpu_torch.device import DeviceLike, resolve_device
 from infercnv_tpu_torch.ops.median import row_median
+from infercnv_tpu_torch.utils.memmap import gather_rows, read_rows, write_rows
 
 
 def _f32(x, device: DeviceLike = None) -> torch.Tensor:
@@ -124,18 +125,31 @@ def normalize_by_upper_quartile(x, device: DeviceLike = None) -> torch.Tensor:
 
 def below_min_mean_expr_cutoff(x, min_mean_expr: float) -> np.ndarray:
     """Indices of genes whose mean across all cells < cutoff
-    (reference .below_min_mean_expr_cutoff :2154-2163)."""
-    means = np.asarray(x, np.float32).mean(axis=0)
+    (reference .below_min_mean_expr_cutoff :2154-2163).  The reference's
+    float32 column sums run row after row; they are carried over blocks of
+    rows in that order (each block's sum starts from the running one), so
+    no float32 copy of the whole matrix is made; a disk memmap's rows are
+    read through its file (utils/memmap.py)."""
+    C = x.shape[0]
+    if x.ndim != 2 or x.shape[1] < 2 or C <= 8192:
+        # one gene: numpy sums the column pairwise, not row after row
+        means = np.asarray(x, np.float32).mean(axis=0)
+        return np.nonzero(means < min_mean_expr)[0]
+    total = np.zeros((1, x.shape[1]), np.float32)
+    for b in range(0, C, 8192):
+        block = np.asarray(read_rows(x, b, b + 8192), np.float32)
+        total = np.concatenate([total, block]).sum(axis=0, keepdims=True)
+    means = total[0] / np.float32(C)
     return np.nonzero(means < min_mean_expr)[0]
 
 
 def genes_below_min_cells_ref(x, min_cells_per_gene: int) -> np.ndarray:
     """Indices of genes expressed (>0) in fewer than `min_cells_per_gene`
     cells (reference require_above_min_cells_ref :2182-2213)."""
-    x = np.asarray(x)
+    x = x if isinstance(x, np.ndarray) else np.asarray(x)   # a memmap stays one
     n_expressed = np.zeros(x.shape[1], np.int64)
     for b in range(0, x.shape[0], 8192):
-        n_expressed += np.count_nonzero(x[b:b + 8192] > 0, axis=0)
+        n_expressed += np.count_nonzero(read_rows(x, b, b + 8192) > 0, axis=0)
     return np.nonzero(n_expressed < min_cells_per_gene)[0]
 
 
@@ -251,7 +265,7 @@ def ref_mean_sd_bounds(x, ref_idx: np.ndarray, sd_amplifier: float = 1.5):
         percell_sd = (vals.std(dim=1, correction=1) if G > 1
                       else torch.zeros(vals.shape[0], device=x.device))
         return mean_ref, percell_sd.mean() * sd_amplifier
-    vals = np.asarray(x, np.float32)[np.asarray(ref_idx)]
+    vals = gather_rows(x, ref_idx).astype(np.float32, copy=False)
     mean_ref = np.float32(vals.mean())
     G = vals.shape[1]
     percell_sd = (vals.std(axis=1, ddof=1) if G > 1
@@ -263,8 +277,8 @@ def clear_noise_via_ref_mean_sd(x, ref_idx: np.ndarray, sd_amplifier: float = 1.
                                 inplace: bool = False):
     """inplace=True updates a host float32 matrix block by block with no
     full-size temporaries and returns that matrix itself (a disk memmap
-    stays one); the caller must own the buffer (run() does: the engine's
-    output)."""
+    stays one, each block written through its file, utils/memmap.py); the
+    caller must own the buffer (run() does: the engine's output)."""
     mean_ref, spread = ref_mean_sd_bounds(x, ref_idx, sd_amplifier)
     if torch.is_tensor(x):
         x = x.to(torch.float32)
@@ -273,8 +287,9 @@ def clear_noise_via_ref_mean_sd(x, ref_idx: np.ndarray, sd_amplifier: float = 1.
     lo, hi = mean_ref - spread, mean_ref + spread
     if inplace:
         for b in range(0, x.shape[0], 16384):
-            blk = x[b:b + 16384]
+            blk = read_rows(x, b, b + 16384)
             blk[(blk > lo) & (blk < hi)] = np.float32(mean_ref)
+            write_rows(x, b, blk)
         return x
     x = np.asarray(x, np.float32)
     inside = (x > lo) & (x < hi)

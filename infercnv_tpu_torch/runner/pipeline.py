@@ -76,11 +76,13 @@ from infercnv_tpu_torch.report.regions import generate_cnv_region_reports
 from infercnv_tpu_torch.runner import checkpoint as ckpt
 from infercnv_tpu_torch.runner.config import RunConfig
 from infercnv_tpu_torch.subcluster.partition import (
+    PHASE_RSS_GB,
     PHASE_TIMES,
     define_tumor_subclusters,
     split_references,
 )
 from infercnv_tpu_torch.utils.logging import log_info, log_warn, set_debug
+from infercnv_tpu_torch.utils.memmap import is_disk_memmap, read_rows, write_rows
 from infercnv_tpu_torch.utils.profiling import StepTimer
 from infercnv_tpu_torch.viz.bayes_plots import (
     mcmc_diagnostic_plots,
@@ -389,9 +391,9 @@ def _stream_plain(engine, src: np.ndarray, out: np.ndarray, chunk: int,
     """The chunks one after another: on the CPU, and under a mesh of
     several processes (each chunk's tail padded with ones to the mesh,
     split over its shards and gathered back, as the reference streams,
-    :296-327)."""
+    :296-327).  A disk memmap's rows go through its file (utils/memmap.py)."""
     for b in range(0, src.shape[0], chunk):
-        block = src[b:b + chunk]
+        block = read_rows(src, b, b + chunk)
         nb = block.shape[0]
         if mesh is not None:
             from infercnv_tpu_torch.parallel.stats import to_host
@@ -403,7 +405,7 @@ def _stream_plain(engine, src: np.ndarray, out: np.ndarray, chunk: int,
             r = torch.from_numpy(to_host(engine.transform_chunk(block, nf, ml, mr)))
         else:
             r = engine.transform_chunk(block, nf, ml, mr)
-        out[b:b + nb] = r[:nb].to(out_dtype).float().cpu().numpy()
+        write_rows(out, b, r[:nb].to(out_dtype).float().cpu().numpy())
         if keep is not None:
             keep.append((b, nb, r))
     return {}
@@ -444,7 +446,9 @@ def _stream_cuda(engine, src: np.ndarray, out: np.ndarray, chunk: int,
     to its own device through its own buffers and streams, so two shards
     on one card share nothing but the card.  With `keep` (a list; one
     device only), each chunk's residual stays on the card as (first row,
-    rows, tensor) for step 15.  Returns the summed seconds of each part
+    rows, tensor) for step 15.  A disk memmap's rows (the counts staged,
+    the residual drained) go through its file, not its mapping
+    (utils/memmap.py).  Returns the summed seconds of each part
     (CUDA events for the card's, summed over the lanes; the host clock for
     the pinned staging)."""
     C, G = src.shape
@@ -466,7 +470,11 @@ def _stream_cuda(engine, src: np.ndarray, out: np.ndarray, chunk: int,
         for lane, slot, lo, real, done in parts:
             done.synchronize()
             t0 = time.perf_counter()
-            torch.from_numpy(out[lo:lo + real]).copy_(lane.pin_out[slot][:real])
+            staged = lane.pin_out[slot][:real]
+            if is_disk_memmap(out):
+                write_rows(out, lo, staged.float().numpy())
+            else:
+                torch.from_numpy(out[lo:lo + real]).copy_(staged)
             host["drain"] += time.perf_counter() - t0
 
     for i, b in enumerate(range(0, C, chunk)):
@@ -480,7 +488,7 @@ def _stream_cuda(engine, src: np.ndarray, out: np.ndarray, chunk: int,
             if lane.uploaded[s] is not None:
                 lane.uploaded[s].synchronize()   # chunk i-2's upload left pin_in[s]
             t0 = time.perf_counter()
-            lane.pin_in[s][:real].copy_(torch.from_numpy(src[lo:lo + real]))
+            lane.pin_in[s][:real].copy_(torch.from_numpy(read_rows(src, lo, lo + real)))
             lane.pin_in[s][real:lr].fill_(1.0)
             host["stage"] += time.perf_counter() - t0
             with torch.cuda.stream(lane.h2d):
@@ -989,8 +997,9 @@ def run(obj: InferCNV, out_dir: Optional[str] = None,
                     device=dev)
                 device_chunks = None  # free the residual kept on the device
             for ph, sec in sorted(PHASE_TIMES.items(), key=lambda kv: -kv[1]):
+                rss = {"rss_gb": round(PHASE_RSS_GB[ph], 3)} if PHASE_RSS_GB.get(ph) else {}
                 timer.records.append({"step": f"15_subclusters.{ph}",
-                                      "seconds": round(sec, 4)})
+                                      "seconds": round(sec, 4), **rss})
             if cfg.inspect_subclusters and not cfg.no_plot:
                 _plotted(timer, "15_subcluster_plot", "subcluster plot",
                          plot_subclusters, obj, out_dir=cfg.out_dir,

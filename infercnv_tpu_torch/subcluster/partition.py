@@ -45,6 +45,8 @@ from infercnv_tpu_torch.subcluster.leiden import (
 )
 from infercnv_tpu_torch.subcluster.pca import pca_embed
 from infercnv_tpu_torch.utils.logging import log_info, log_warn
+from infercnv_tpu_torch.utils.memmap import gather_rows
+from infercnv_tpu_torch.utils.profiling import memory_gb, memory_text
 
 #: Above this many cells a group's stored dendrogram is built on subcluster
 #: mean profiles instead of per-cell distances (the condensed distances
@@ -57,12 +59,20 @@ LINKAGE_MAX_CELLS = 8000
 #: linkage); the pipeline copies them into step_timings as
 #: `15_subclusters.<phase>` rows.
 PHASE_TIMES: Dict[str, float] = {}
+#: The largest resident set (VmRSS, GB) at the end of each phase of that
+#: call, beside PHASE_TIMES (`15_subclusters.<phase>` rows' rss_gb).
+PHASE_RSS_GB: Dict[str, float] = {}
 
 #: Above this many residual elements, the host route slices each group's
 #: rows from obj.expr (possibly a disk memmap) as it partitions it, instead
 #: of first copying the whole gene-filtered matrix (reference
 #: infercnv_tpu/subcluster/partition.py:440, the literal 2_000_000_000).
 LAZY_SLICE_ELEMENTS = 2_000_000_000
+
+#: The lazy slice gathers a group's rows this many at a time, reading a disk
+#: memmap's rows through its file (utils/memmap.gather_rows), so a group's
+#: slice holds its copy and none of the mapping's pages.
+LAZY_SLICE_BLOCK_ROWS = 16384
 
 #: Where the LAST define_tumor_subclusters call took its groups' rows:
 #: "device_chunks" (the engine's residual kept on the device) or "host"
@@ -76,6 +86,7 @@ def _phase(name: str, t0: float, sync=None) -> None:
     if torch.is_tensor(sync) and sync.device.type == "cuda":
         torch.cuda.synchronize(sync.device)
     PHASE_TIMES[name] = PHASE_TIMES.get(name, 0.0) + (time.perf_counter() - t0)
+    PHASE_RSS_GB[name] = max(PHASE_RSS_GB.get(name, 0.0), memory_gb().get("rss_gb", 0.0))
 
 
 def ward_linkage(x_cg: np.ndarray, device: DeviceLike = None) -> np.ndarray:
@@ -116,9 +127,16 @@ def zscore_gene_filter(obj: InferCNV, z_score_filter: float) -> np.ndarray:
     z computed on the pooled reference matrix (reference :45-68)."""
     if z_score_filter <= 0 or not obj.has_reference_cells():
         return np.arange(obj.num_genes)
-    ref = obj.expr[obj.all_ref_idx()]
-    z = (ref - ref.mean()) / ref.std(ddof=1)
-    outliers = np.abs(z).mean(axis=0) >= z_score_filter
+    # the reference's (ref - mean) / sd and |z|, the same operations done in
+    # place on the gathered copy: std's own [n_ref, G] temporary is the only
+    # one beside it (the reference's expression makes three)
+    ref = gather_rows(obj.expr, obj.all_ref_idx())
+    if not np.issubdtype(ref.dtype, np.floating):
+        ref = ref.astype(np.float64)   # as ref - mean would promote it
+    mean, sd = ref.mean(), ref.std(ddof=1)
+    np.subtract(ref, mean, out=ref)
+    np.divide(ref, sd, out=ref)
+    outliers = np.abs(ref, out=ref).mean(axis=0) >= z_score_filter
     if outliers.any():
         log_info(f"z_score_filter: masking {int(outliers.sum())} genes for subclustering")
     return np.nonzero(~outliers)[0]
@@ -428,6 +446,7 @@ def define_tumor_subclusters(
     log_info(f"define_tumor_subclusters(p_val={p_val}, method={partition_method})")
     dev = resolve_device(device)
     PHASE_TIMES.clear()
+    PHASE_RSS_GB.clear()
     lazy_slice = False
     if cluster_by_groups:
         tumor_groups: Dict[str, np.ndarray] = {**{k: np.asarray(v) for k, v in obj.obs_groups.items()},
@@ -471,7 +490,7 @@ def define_tumor_subclusters(
             # 1M x 8.5k); each group slices its own rows from the residual
             lazy_slice = True
             log_info(f"-lazy per-group slicing of the {obj.expr.size:,}-element "
-                     "residual (no full gene-filtered copy)")
+                     f"residual (no full gene-filtered copy; {memory_text()})")
             _phase("gene_filter", t0)
         else:
             expr = obj.expr[:, keep_genes]
@@ -493,10 +512,11 @@ def define_tumor_subclusters(
             _phase("slice", t0, sync=device_rows)
         elif lazy_slice:
             # one [n_group, G_kept] copy (np.ix_; chained fancy indexing
-            # would first copy the full gene-width rows)
+            # would first copy the full gene-width rows), in row blocks
             device_rows = None
-            sub_expr = obj.expr[np.ix_(idx, keep_genes)]
+            sub_expr = gather_rows(obj.expr, idx, keep_genes, LAZY_SLICE_BLOCK_ROWS)
             _phase("slice", t0)
+            log_info(f"-group {group}: {idx.size} rows sliced ({memory_text()})")
         else:
             device_rows = None
             sub_expr = expr[idx]
@@ -520,7 +540,9 @@ def define_tumor_subclusters(
             Z, subclusters = _single_tumor_hclust_subclustering(
                 group, idx, sub_expr, p_val, partition_method, dev,
             )
-        del device_rows
+        del device_rows, sub_expr   # not beside the next group's slice
+        if lazy_slice:
+            log_info(f"-group {group}: partitioned ({memory_text()})")
         res["hc"][group] = Z
         res["subclusters"][group] = subclusters
     del dexpr
@@ -563,11 +585,13 @@ def define_tumor_subclusters(
                                                key=lambda kv: -kv[1])))
     if obj.hspike is not None:
         log_info("-mirroring subclusters for hspike (partition_method='none')")
-        phases = dict(PHASE_TIMES)  # the recursive call clears the registry
+        phases, rss = dict(PHASE_TIMES), dict(PHASE_RSS_GB)  # the call clears them
         define_tumor_subclusters(obj.hspike, cluster_by_groups=True,
                                  partition_method="none", z_score_filter=0.0,
                                  device=dev)
         PHASE_TIMES.clear()
         PHASE_TIMES.update(phases)
+        PHASE_RSS_GB.clear()
+        PHASE_RSS_GB.update(rss)
     ROWS_FROM = rows_from
     return subclusters_per_chr

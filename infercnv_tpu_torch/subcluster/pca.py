@@ -4,7 +4,7 @@ Counterpart of infercnv_tpu/subcluster/pca.py (lines 1-133):
 ``variable_features_vst``, ``_gene_moments``, ``_clipped_z_moments``,
 ``_scale_and_project`` and ``pca_embed``.  Rows given as a tensor keep their
 per-gene moments on its device (only [G] vectors come back to the host);
-host rows take the reference's float64 numpy.  The VST trend is the port's
+host rows take the reference's float64 numpy, accumulated over row blocks.  The VST trend is the port's
 smoothing spline (utils/splines.py).  The projection is the reference's
 randomised range finder with one power iteration: products with
 ``torch.matmul`` and QR and SVD with ``torch.linalg`` on the device (XLA's
@@ -31,6 +31,11 @@ import torch
 
 from infercnv_tpu_torch.device import DeviceLike, resolve_device
 from infercnv_tpu_torch.utils.splines import fit_smoothing_spline
+
+#: Host rows' VST moments are accumulated over blocks of this many rows (a
+#: whole-matrix pass would make [C, G] float64 temporaries: 18 GB for a
+#: 266,666-cell group of the 1M-cell run).
+VST_BLOCK_ROWS = 4096
 
 
 def range_omega(seed: int, G: int, k: int) -> torch.Tensor:
@@ -89,8 +94,18 @@ def vst_standardized_variance(x_cg) -> Optional[np.ndarray]:
         mu = mu_d.cpu().numpy().astype(np.float64)
         var = var_d.cpu().numpy().astype(np.float64)
     else:
-        mu = x.mean(axis=0, dtype=np.float64)
-        var = x.var(axis=0, ddof=1, dtype=np.float64)
+        # two passes over row blocks in float64: the mean, then the
+        # squared deviations from it (numpy's var, without its [C, G]
+        # float64 temporary of x - mean)
+        total = np.zeros(G)
+        for b in range(0, C, VST_BLOCK_ROWS):
+            total += x[b:b + VST_BLOCK_ROWS].sum(axis=0, dtype=np.float64)
+        mu = total / C
+        sq = np.zeros(G)
+        for b in range(0, C, VST_BLOCK_ROWS):
+            d = x[b:b + VST_BLOCK_ROWS] - mu[None, :]
+            sq += np.einsum("ij,ij->j", d, d)
+        var = sq / (C - 1)
     ok = var > 0
     if ok.sum() < 10:
         return None
@@ -112,8 +127,8 @@ def vst_standardized_variance(x_cg) -> Optional[np.ndarray]:
         zsum = np.zeros(G)
         zsq = np.zeros(G)
         inv_sd = (1.0 / exp_sd)[None, :]
-        for b in range(0, C, 4096):
-            zb = np.minimum((x[b:b + 4096] - mu[None, :]) * inv_sd, clip)
+        for b in range(0, C, VST_BLOCK_ROWS):
+            zb = np.minimum((x[b:b + VST_BLOCK_ROWS] - mu[None, :]) * inv_sd, clip)
             zsum += zb.sum(axis=0, dtype=np.float64)
             zsq += np.einsum("ij,ij->j", zb, zb)
     zmean = zsum / C

@@ -67,13 +67,23 @@ def test_every_module_imports_without_jax():
     assert res.stdout.strip().endswith("ok")
 
 
-@pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in
-                                        [*PKG.rglob("*.py"), ROOT / "chip_smoke.py",
-                                         *(ROOT / "benchmarks").glob("torch_*.py"),
-                                         *(ROOT / "scripts").glob("torch_*.py")]))
+#: the files that must import no JAX: the package, the chip script, and the
+#: port's programs beside the reference's in benchmarks/ and scripts/
+CHECKED = sorted(str(p.relative_to(ROOT)) for p in
+                 [*PKG.rglob("*.py"), ROOT / "chip_smoke.py",
+                  *(ROOT / "benchmarks").glob("torch_*.py"),
+                  *(ROOT / "scripts").glob("torch_*.py")])
+
+
+@pytest.mark.parametrize("path", CHECKED)
 def test_no_jax_imports(path):
     roots = set(_imported_roots(ROOT / path))
     assert not roots & set(FORBIDDEN), f"{path} imports {roots & set(FORBIDDEN)}"
+
+
+def test_the_ported_programs_are_checked():
+    assert {"scripts/torch_leiden_fidelity.py", "scripts/torch_chunk_gap.py",
+            "benchmarks/torch_scale1m_run.py", "chip_smoke.py"} <= set(CHECKED)
 
 
 def test_engine_defaults_to_cuda():

@@ -2596,6 +2596,79 @@ def median_awkward(dev, yc, yw) -> dict:
     return {k: (v, v.shape[1]) for k, v in cases.items()}
 
 
+def sync_count(fn) -> dict:
+    """One call of fn, after one warm call, under torch.profiler (the switch
+    of the program's spans and counters) with CUDA's sync-debug mode on:
+    the synchronising operations that mode reports, the increase of the
+    program's ``host_syncs`` counter, and the package's lines that made
+    the reports."""
+    import traceback
+    import warnings
+    from collections import Counter
+
+    import torch
+
+    from infercnv_tpu_torch.utils import profiling
+
+    pkg = str(ROOT / "infercnv_tpu_torch")
+    sites, inside = [], []
+
+    def report(message, category, filename, lineno, file=None, line=None):
+        # fn's reports only: switching the mode on reports a sync itself
+        if inside and "synchronizing" in str(message):
+            ours = [f for f in traceback.extract_stack() if f.filename.startswith(pkg)]
+            sites.append(f"{Path(ours[-1].filename).name}:{ours[-1].lineno}" if ours
+                         else f"{Path(filename).name}:{lineno}")
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        before = profiling.counter_totals().get(profiling.HOST_SYNCS, 0)
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = report
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                inside.append(True)
+                fn()
+            finally:
+                inside.clear()
+                torch.cuda.set_sync_debug_mode("default")
+        counted = profiling.counter_totals().get(profiling.HOST_SYNCS, 0) - before
+    torch.cuda.synchronize()
+    profiling.reset_spans()
+    return {"sync_debug": len(sites), "host_syncs": counted,
+            "sites": dict(Counter(sites))}
+
+
+def host_syncs_phase(smi, inp, e3, cin, c_stats) -> None:
+    """The program's host_syncs counter against CUDA's sync-debug count, one
+    call of each engine route the benchmark drives: ref_stats, the fused
+    subcluster_chunk and full_chunk (i6), the wide-band full_chunk (i3,
+    coordinates) and viterbi_group_means; the two must be equal."""
+    eng = inp.engine
+    _, sums, counts = eng.subcluster_chunk(inp.counts_a, inp.nf, inp.ml, inp.mr,
+                                           inp.noise, inp.onehot)
+    means = sums / counts[:, None]
+    cells = 8192
+    calls = {
+        "ref_stats": lambda: eng.ref_stats(inp.ref_counts, inp.nf, inp.onehot_ref),
+        "subcluster_chunk.fused": lambda: eng.subcluster_chunk(
+            inp.counts_a, inp.nf, inp.ml, inp.mr, inp.noise, inp.onehot),
+        "full_chunk.fused_i6": lambda: eng.full_chunk(
+            inp.counts_a[:cells], inp.nf, inp.ml, inp.mr, inp.noise),
+        "full_chunk.wide_band_i3": lambda: e3.full_chunk(
+            cin.counts_a[:cells], cin.nf, *c_stats),
+        "viterbi_group_means": lambda: eng.viterbi_group_means(means),
+    }
+    out = {name: sync_count(fn) for name, fn in calls.items()}
+    emit(phase="host_syncs", card=smi, routes=out)
+    for name, r in out.items():
+        require(r["sync_debug"] == r["host_syncs"],
+                f"host_syncs: {name} counted {r['host_syncs']}, the sync-debug "
+                f"mode reported {r['sync_debug']} ({r['sites']})")
+
+
 def run(dev) -> int:
     import numpy as np
     import torch
@@ -3332,6 +3405,9 @@ def run(dev) -> int:
     require(same, "coordinates viterbi_group_means: card and CPU states differ")
     emit(phase="coords_reference", cells=N_CHECK, transform_max_abs_err=err,
          full_chunk_states_equal=states_same, group_states_equal=same)
+
+    # ---- host_syncs: the program's counter against the sync-debug mode ----
+    host_syncs_phase(smi, inp, e3, cin, c_stats)
 
     # ---- run(): the pipeline around the engine ---------------------------
     del inp, cin, win, be, counts_a, counts_b, ref_counts

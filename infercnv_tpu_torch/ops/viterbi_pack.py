@@ -25,6 +25,7 @@ import torch
 
 from infercnv_tpu_torch.core.genome import GeneOrder
 from infercnv_tpu_torch.ops.viterbi_kernel import transition_logs, viterbi
+from infercnv_tpu_torch.utils import profiling
 
 
 def pack_indices(gene_order: GeneOrder) -> Tuple[np.ndarray, np.ndarray,
@@ -116,6 +117,7 @@ def force_short_neutral(states: torch.Tensor, short_genes, S: int) -> torch.Tens
     (R/inferCNV_HMM.R:1104-1107).  Writes into ``states``."""
     if short_genes is None:
         return states
+    profiling.host_upload(short_genes, states.device)
     idx = torch.as_tensor(short_genes, dtype=torch.int64, device=states.device)
     states[:, idx] = (S - 1) // 2 + 1
     return states
@@ -127,31 +129,41 @@ def viterbi_packed(resid: torch.Tensor, layout: PackedLayout, means,
 
     resid: [C, G] f32; sigma_rows: [C] per-row emission sigma; means: [S]
     state means.  Returns 1-based int8 states [C, G].  On a CUDA device the
-    recursion is the CUDA kernel (ops/viterbi_kernel.py)."""
+    recursion is the CUDA kernel (ops/viterbi_kernel.py).  Spans
+    ``icnv.viterbi`` with ``.pack``, ``.kernel`` and ``.unpack``; each
+    layout upload is a blocking copy (``host_syncs``)."""
     dev = resid.device
-    means = np.asarray(means, np.float32)
-    S = means.shape[0]
-    C = resid.shape[0]
-    Lmax = layout.Lmax
-    gather = torch.as_tensor(layout.gather, dtype=torch.int64, device=dev)
-    n_bins = gather.shape[0]
-    B = C * n_bins
-    xp = resid[:, gather].reshape(B, Lmax)                 # [C * n_bins, Lmax]
-    lengths = torch.as_tensor(layout.valid.sum(axis=1), dtype=torch.int32,
-                              device=dev).repeat(C)
-    bnd = torch.as_tensor(layout.boundaries, device=dev).repeat(C, 1)
-    sigma_b = torch.as_tensor(sigma_rows, dtype=torch.float32,
-                              device=dev).repeat_interleave(n_bins)
-    log_diag, log_off, log_delta = transition_logs(S, hmm_t)
-    states = viterbi(xp, lengths, sigma_b, bnd, means, log_delta,
-                     log_diag, log_off)
-    inv = torch.as_tensor(layout.inv_pack, dtype=torch.int64, device=dev)
-    if states.stride() == (1, states.shape[0]) and Lmax > 1:
-        # the kernel's [Lmax, C * n_bins] states, seen transposed: each
-        # gene's state is read from its bin and position in one gather,
-        # giving [G, C], returned as a [C, G] view
-        lb = states.t().view(Lmax, C, n_bins)
-        vals = lb[inv % Lmax, :, inv // Lmax].t()
-    else:
-        vals = states.reshape(C, n_bins * Lmax)[:, inv]
-    return force_short_neutral(vals, layout.short_genes, S)
+    with profiling.span("icnv.viterbi", dev):
+        means = np.asarray(means, np.float32)
+        S = means.shape[0]
+        C = resid.shape[0]
+        Lmax = layout.Lmax
+        with profiling.span("icnv.viterbi.pack", dev):
+            # three layout uploads from numpy, and sigma's unless on the card
+            profiling.host_sync(dev, 3)
+            profiling.host_upload(sigma_rows, dev)
+            gather = torch.as_tensor(layout.gather, dtype=torch.int64, device=dev)
+            n_bins = gather.shape[0]
+            B = C * n_bins
+            xp = resid[:, gather].reshape(B, Lmax)             # [C * n_bins, Lmax]
+            lengths = torch.as_tensor(layout.valid.sum(axis=1), dtype=torch.int32,
+                                      device=dev).repeat(C)
+            bnd = torch.as_tensor(layout.boundaries, device=dev).repeat(C, 1)
+            sigma_b = torch.as_tensor(sigma_rows, dtype=torch.float32,
+                                      device=dev).repeat_interleave(n_bins)
+            log_diag, log_off, log_delta = transition_logs(S, hmm_t)
+        with profiling.span("icnv.viterbi.kernel", dev):
+            states = viterbi(xp, lengths, sigma_b, bnd, means, log_delta,
+                             log_diag, log_off)
+        with profiling.span("icnv.viterbi.unpack", dev):
+            profiling.host_sync(dev)
+            inv = torch.as_tensor(layout.inv_pack, dtype=torch.int64, device=dev)
+            if states.stride() == (1, states.shape[0]) and Lmax > 1:
+                # the kernel's [Lmax, C * n_bins] states, seen transposed:
+                # each gene's state is read from its bin and position in one
+                # gather, giving [G, C], returned as a [C, G] view
+                lb = states.t().view(Lmax, C, n_bins)
+                vals = lb[inv % Lmax, :, inv // Lmax].t()
+            else:
+                vals = states.reshape(C, n_bins * Lmax)[:, inv]
+            return force_short_neutral(vals, layout.short_genes, S)

@@ -95,6 +95,7 @@ from infercnv_tpu_torch.parallel.stats import (
     put_cell_sharded,
     sum_over_mesh,
 )
+from infercnv_tpu_torch.utils import profiling
 
 _OUT_DTYPES = {"float32": torch.float32, "float16": torch.float16,
                "bfloat16": torch.bfloat16}
@@ -203,7 +204,11 @@ class CnvEngine:
     # numerics
     # ------------------------------------------------------------------
 
+    def _span(self, name: str):
+        return profiling.span(name, self.device)
+
     def _f32(self, a) -> torch.Tensor:
+        profiling.host_upload(a, self.device)
         return torch.as_tensor(a, dtype=torch.float32).to(self.device)
 
     def _subtract(self, x, grp_means):
@@ -243,32 +248,43 @@ class CnvEngine:
         min == max == mean equal ``x - mean`` exactly, so the no-bounds
         configuration takes the same kernels.  With noise_bounds it returns
         (residual, denoised residual)."""
-        cfg = self.config
-        if cfg.ref_subtract_use_bounds:
-            b1min, b1max = ref_means_log.amin(dim=0), ref_means_log.amax(dim=0)
-            b2min, b2max = ref_means_resid.amin(dim=0), ref_means_resid.amax(dim=0)
-        else:
-            b1min = b1max = ref_means_log.mean(dim=0)
-            b2min = b2max = ref_means_resid.mean(dim=0)
-        if self.residual_route == "fused":
-            return residual_fused(
-                counts, self._w_fused, b1min.contiguous(), b1max.contiguous(),
-                b2min.contiguous(), b2max.contiguous(), norm_factor,
-                mct=cfg.max_centered_threshold,
-                center_mean=(cfg.center_method != "median"),
-                out_dtype=out_dtype, noise_bounds=noise_bounds)
-        # a Python float multiplies as f32, without a host-to-device copy
-        # (a blocking copy would stall the stream once a chunk)
-        y = self._smooth(self._clipped_x(counts, float(norm_factor),
-                                         ref_means_log))
-        if self.residual_route == "wide_genome":
-            resid = median_center_residual(y, b2min.contiguous(),
-                                           b2max.contiguous(), y.shape[1])
-        else:
-            resid = torch.exp2(where_bounds(self._centre(y), b2min, b2max))
-        if noise_bounds is not None:
+        with self._span("icnv.residual"):
+            cfg = self.config
+            if cfg.ref_subtract_use_bounds:
+                b1min, b1max = ref_means_log.amin(dim=0), ref_means_log.amax(dim=0)
+                b2min, b2max = ref_means_resid.amin(dim=0), ref_means_resid.amax(dim=0)
+            else:
+                b1min = b1max = ref_means_log.mean(dim=0)
+                b2min = b2max = ref_means_resid.mean(dim=0)
+            # the norm factor is read on the host on every route
+            profiling.host_read(norm_factor)
+            if self.residual_route == "fused":
+                return residual_fused(
+                    counts, self._w_fused, b1min.contiguous(), b1max.contiguous(),
+                    b2min.contiguous(), b2max.contiguous(), norm_factor,
+                    mct=cfg.max_centered_threshold,
+                    center_mean=(cfg.center_method != "median"),
+                    out_dtype=out_dtype, noise_bounds=noise_bounds)
+            # a Python float multiplies as f32, without a host-to-device copy
+            # (a blocking copy would stall the stream once a chunk)
+            with self._span("icnv.residual.clip"):
+                x = self._clipped_x(counts, float(norm_factor), ref_means_log)
+            with self._span("icnv.residual.smooth"):
+                y = self._smooth(x)
+            if self.residual_route == "wide_genome":
+                # one kernel centres on the median and applies the bounds
+                with self._span("icnv.residual.tail"):
+                    resid = median_center_residual(y, b2min.contiguous(),
+                                                   b2max.contiguous(), y.shape[1])
+            else:
+                with self._span("icnv.residual.centre"):
+                    y = self._centre(y)
+                with self._span("icnv.residual.tail"):
+                    resid = torch.exp2(where_bounds(y, b2min, b2max))
+            if noise_bounds is None:
+                return resid.to(out_dtype)
+        with self._span("icnv.denoise"):
             return resid, denoise(resid, noise_bounds)
-        return resid.to(out_dtype)
 
     def _residual_and_final(self, counts, norm_factor, ref_means_log,
                             ref_means_resid, noise_bounds):
@@ -299,18 +315,21 @@ class CnvEngine:
     # ------------------------------------------------------------------
 
     def _ref_stats_oneshot(self, ref_counts, nf, group_onehot) -> Stats:
-        xlog = self._log_norm(ref_counts, nf)
-        gn = group_onehot.sum(dim=1, keepdim=True)
-        ref_means_log = (group_onehot @ xlog) / gn
-        x = self._subtract(xlog, ref_means_log)
-        mct = self.config.max_centered_threshold
-        x = self._centre(self._smooth(torch.clamp(x, -mct, mct)))
-        ref_means_resid = (group_onehot @ x) / gn
+        with self._span("icnv.ref_stats.means_log"):
+            xlog = self._log_norm(ref_counts, nf)
+            gn = group_onehot.sum(dim=1, keepdim=True)
+            ref_means_log = (group_onehot @ xlog) / gn
+        with self._span("icnv.ref_stats.residual"):
+            x = self._subtract(xlog, ref_means_log)
+            mct = self.config.max_centered_threshold
+            x = self._centre(self._smooth(torch.clamp(x, -mct, mct)))
+            ref_means_resid = (group_onehot @ x) / gn
         # denoise bounds on the pooled reference residuals (:2302-2346)
-        final = torch.exp2(self._subtract(x, ref_means_resid))
-        mean_ref = final.mean()
-        sd_ref = final.std(dim=1, correction=1).mean() * self.config.sd_amplifier
-        return ref_means_log, ref_means_resid, torch.stack([mean_ref, sd_ref])
+        with self._span("icnv.ref_stats.noise_bounds"):
+            final = torch.exp2(self._subtract(x, ref_means_resid))
+            mean_ref = final.mean()
+            sd_ref = final.std(dim=1, correction=1).mean() * self.config.sd_amplifier
+            return ref_means_log, ref_means_resid, torch.stack([mean_ref, sd_ref])
 
     def _ref_stats_streamed(self, ref_counts, norm_factor, group_onehot,
                             chunk: int = 16384) -> Stats:
@@ -321,6 +340,7 @@ class CnvEngine:
         G = self.gene_order.num_genes
         K = group_onehot.shape[0]
         nf = self._f32(norm_factor)
+        profiling.host_read(group_onehot)
         onehot = _host_f32(group_onehot)
         gn = onehot.sum(axis=1)[:, None]
 
@@ -329,23 +349,29 @@ class CnvEngine:
                 c = _counts_cast(ref_counts[b:b + chunk], self.device)
                 yield c, self._f32(np.ascontiguousarray(onehot[:, b:b + chunk]))
 
-        gsum = np.zeros((K, G), np.float64)
-        for c, oh in chunks():
-            gsum += (oh @ self._log_norm(c, nf)).double().cpu().numpy()
-        ml = self._f32((gsum / gn).astype(np.float32))
-        gsum2 = np.zeros((K, G), np.float64)
-        for c, oh in chunks():
-            gsum2 += (oh @ self._stage2_x(c, nf, ml)).double().cpu().numpy()
-        mr = self._f32((gsum2 / gn).astype(np.float32))
-        total = 0.0
-        sd_sum = 0.0
-        for c, _oh in chunks():
-            final = torch.exp2(self._subtract(self._stage2_x(c, nf, ml), mr))
-            total += float(final.sum())
-            sd_sum += float(final.std(dim=1, correction=1).sum())
-        mean_ref = total / (R * G)
-        sd_ref = (sd_sum / R) * self.config.sd_amplifier
-        return ml, mr, self._f32(np.array([mean_ref, sd_ref], np.float32))
+        with self._span("icnv.ref_stats.means_log"):
+            gsum = np.zeros((K, G), np.float64)
+            for c, oh in chunks():
+                profiling.host_sync(self.device)
+                gsum += (oh @ self._log_norm(c, nf)).double().cpu().numpy()
+            ml = self._f32((gsum / gn).astype(np.float32))
+        with self._span("icnv.ref_stats.residual"):
+            gsum2 = np.zeros((K, G), np.float64)
+            for c, oh in chunks():
+                profiling.host_sync(self.device)
+                gsum2 += (oh @ self._stage2_x(c, nf, ml)).double().cpu().numpy()
+            mr = self._f32((gsum2 / gn).astype(np.float32))
+        with self._span("icnv.ref_stats.noise_bounds"):
+            total = 0.0
+            sd_sum = 0.0
+            for c, _oh in chunks():
+                final = torch.exp2(self._subtract(self._stage2_x(c, nf, ml), mr))
+                profiling.host_sync(self.device, 2)
+                total += float(final.sum())
+                sd_sum += float(final.std(dim=1, correction=1).sum())
+            mean_ref = total / (R * G)
+            sd_ref = (sd_sum / R) * self.config.sd_amplifier
+            return ml, mr, self._f32(np.array([mean_ref, sd_ref], np.float32))
 
     # ------------------------------------------------------------------
     # public API
@@ -355,13 +381,15 @@ class CnvEngine:
         """(ref_means_log [K, G], ref_means_resid [K, G], noise_bounds [2] =
         (mean_ref, sd spread * amplifier)) from the reference cells.
         group_onehot: [K, n_ref] membership (None = one pooled group)."""
-        if group_onehot is None:
-            group_onehot = np.ones((1, ref_counts.shape[0]), np.float32)
-        if int(np.prod(ref_counts.shape)) > _STREAM_REF_ELEMENTS:
-            return self._ref_stats_streamed(ref_counts, norm_factor, group_onehot)
-        counts = _counts_cast(ref_counts, self.device)
-        return self._ref_stats_oneshot(counts, self._f32(norm_factor),
-                                       self._f32(group_onehot))
+        with self._span("icnv.ref_stats"):
+            if group_onehot is None:
+                group_onehot = np.ones((1, ref_counts.shape[0]), np.float32)
+            if int(np.prod(ref_counts.shape)) > _STREAM_REF_ELEMENTS:
+                return self._ref_stats_streamed(ref_counts, norm_factor,
+                                                group_onehot)
+            counts = _counts_cast(ref_counts, self.device)
+            return self._ref_stats_oneshot(counts, self._f32(norm_factor),
+                                           self._f32(group_onehot))
 
     def engine_on(self, device: torch.device) -> "CnvEngine":
         """The single-device engine of one of the mesh's devices (this
@@ -372,9 +400,15 @@ class CnvEngine:
 
     def here(self, *tensors):
         """The tensors on this engine's device (no copy when they are)."""
+        for t in tensors:
+            if torch.is_tensor(t):
+                profiling.host_upload(t, self.device)
         return [t.to(self.device) if torch.is_tensor(t) else t for t in tensors]
 
     def _shards(self, x) -> CellSharded:
+        if not isinstance(x, CellSharded):
+            # one blocking copy to each shard's device
+            profiling.host_upload(x, self.device, len(self.mesh.devices))
         return put_cell_sharded(x if torch.is_tensor(x) or isinstance(x, CellSharded)
                                 else np.asarray(x), self.mesh)
 
@@ -382,14 +416,14 @@ class CnvEngine:
                         ref_means_resid):
         """Pre-denoise residual of one cell chunk, in config.out_dtype (a
         CellSharded under a mesh)."""
-        if self.mesh is not None:
-            return self._shards(counts).map(lambda s: self.engine_on(s.device)
-                                            .transform_chunk(s, norm_factor,
-                                                             ref_means_log,
-                                                             ref_means_resid))
-        ml, mr = self.here(ref_means_log, ref_means_resid)
-        return self._residual(_counts_cast(counts, self.device), norm_factor,
-                              ml, mr, _OUT_DTYPES[self.config.out_dtype])
+        with self._span("icnv.chunk"):
+            if self.mesh is not None:
+                return self._shards(counts).map(
+                    lambda s: self.engine_on(s.device).transform_chunk(
+                        s, norm_factor, ref_means_log, ref_means_resid))
+            ml, mr = self.here(ref_means_log, ref_means_resid)
+            return self._residual(_counts_cast(counts, self.device), norm_factor,
+                                  ml, mr, _OUT_DTYPES[self.config.out_dtype])
 
     def full_chunk(self, counts, norm_factor, ref_means_log, ref_means_resid,
                    noise_bounds=None):
@@ -397,16 +431,17 @@ class CnvEngine:
         The Viterbi reads the pre-denoise residual; the returned residual is
         denoised when config.denoise and noise_bounds are given.  Under a
         mesh both are CellSharded."""
-        if self.mesh is not None:
-            outs = [self.engine_on(s.device).full_chunk(
-                s, norm_factor, ref_means_log, ref_means_resid, noise_bounds)
-                for s in self._shards(counts).shards]
-            return (CellSharded([o[0] for o in outs], self.mesh),
-                    CellSharded([o[1] for o in outs], self.mesh))
-        resid, final = self._residual_and_final(
-            counts, norm_factor, *self.here(ref_means_log, ref_means_resid,
-                                            noise_bounds))
-        return final, self._viterbi(resid)
+        with self._span("icnv.chunk"):
+            if self.mesh is not None:
+                outs = [self.engine_on(s.device).full_chunk(
+                    s, norm_factor, ref_means_log, ref_means_resid, noise_bounds)
+                    for s in self._shards(counts).shards]
+                return (CellSharded([o[0] for o in outs], self.mesh),
+                        CellSharded([o[1] for o in outs], self.mesh))
+            resid, final = self._residual_and_final(
+                counts, norm_factor, *self.here(ref_means_log, ref_means_resid,
+                                                noise_bounds))
+            return final, self._viterbi(resid)
 
     def subcluster_chunk(self, counts, norm_factor, ref_means_log,
                          ref_means_resid, noise_bounds, group_onehot,
@@ -418,25 +453,28 @@ class CnvEngine:
         residual is CellSharded and group_onehot is the chunk's [K, C]
         membership, or a CellSharded of its transpose; the sums and counts
         are summed over the mesh and lie on its first device."""
-        if self.mesh is None:
-            resid, final = self._residual_and_final(
-                counts, norm_factor, *self.here(ref_means_log, ref_means_resid,
-                                                noise_bounds))
-            onehot = self._f32(group_onehot)
-            sums, counts_k = onehot @ resid, onehot.sum(dim=1)
-        else:
+        with self._span("icnv.chunk"):
+            if self.mesh is None:
+                resid, final = self._residual_and_final(
+                    counts, norm_factor, *self.here(ref_means_log, ref_means_resid,
+                                                    noise_bounds))
+                with self._span("icnv.group_sums"):
+                    onehot = self._f32(group_onehot)
+                    sums, counts_k = onehot @ resid, onehot.sum(dim=1)
+                    return _accumulate(final, sums, counts_k, acc)
             xs = self._shards(counts)
+            if not isinstance(group_onehot, CellSharded):
+                profiling.host_read(group_onehot)
             ohs = (group_onehot if isinstance(group_onehot, CellSharded)
                    else self._shards(_host_f32(group_onehot).T))
             outs = [self.engine_on(s.device).subcluster_chunk(
                 s, norm_factor, ref_means_log, ref_means_resid, noise_bounds,
                 o.t()) for s, o in zip(xs.shards, ohs.shards)]
             final = CellSharded([o[0] for o in outs], self.mesh)
-            sums = sum_over_mesh([o[1] for o in outs], self.mesh).to(self.device)
-            counts_k = sum_over_mesh([o[2] for o in outs], self.mesh).to(self.device)
-        if acc is None:
-            return final, sums, counts_k
-        return final, acc[0] + sums, acc[1] + counts_k
+            with self._span("icnv.group_sums"):
+                sums = sum_over_mesh([o[1] for o in outs], self.mesh).to(self.device)
+                counts_k = sum_over_mesh([o[2] for o in outs], self.mesh).to(self.device)
+                return _accumulate(final, sums, counts_k, acc)
 
     def viterbi_group_means(self, group_means, n_cells_per_group=None,
                             trend_fits=None, levels=None) -> torch.Tensor:
@@ -445,21 +483,36 @@ class CnvEngine:
         With trend_fits, each group's emission sigma follows the hspike
         cell-count trend (.get_state_emission_params :586-614) collapsed to
         its median over states (:1122).  Returns int8 states [K, G] (1-based)."""
-        group_means = self._f32(group_means)
-        K = group_means.shape[0]
-        if trend_fits is not None and n_cells_per_group is not None:
-            from infercnv_tpu_torch.models.hmm import I6_LEVELS, state_emission_sds
+        with self._span("icnv.viterbi_group_means"):
+            group_means = self._f32(group_means)
+            K = group_means.shape[0]
+            with self._span("icnv.viterbi.sigma"):
+                if trend_fits is not None and n_cells_per_group is not None:
+                    from infercnv_tpu_torch.models.hmm import (
+                        I6_LEVELS,
+                        state_emission_sds,
+                    )
 
-            lv = levels if levels is not None else I6_LEVELS
-            counts = (n_cells_per_group.cpu().numpy()
-                      if torch.is_tensor(n_cells_per_group)
-                      else np.asarray(n_cells_per_group))
-            sigma_rows = np.array([
-                float(np.median(state_emission_sds(int(n), trend_fits, lv)))
-                for n in counts], np.float32)
-        else:
-            sigma_rows = np.full((K,), self._sigma, np.float32)
-        return self._viterbi(group_means, self._f32(sigma_rows))
+                    lv = levels if levels is not None else I6_LEVELS
+                    profiling.host_read(n_cells_per_group)
+                    counts = (n_cells_per_group.cpu().numpy()
+                              if torch.is_tensor(n_cells_per_group)
+                              else np.asarray(n_cells_per_group))
+                    sigma_rows = np.array([
+                        float(np.median(state_emission_sds(int(n), trend_fits, lv)))
+                        for n in counts], np.float32)
+                else:
+                    sigma_rows = np.full((K,), self._sigma, np.float32)
+                sigma_rows = self._f32(sigma_rows)
+            return self._viterbi(group_means, sigma_rows)
+
+
+def _accumulate(final, sums, counts_k, acc):
+    """subcluster_chunk's result: the chunk's sums and counts added to the
+    previous call's (sums, counts), if any."""
+    if acc is None:
+        return final, sums, counts_k
+    return final, acc[0] + sums, acc[1] + counts_k
 
 
 def _host_f32(a) -> np.ndarray:
@@ -472,6 +525,7 @@ def _host_f32(a) -> np.ndarray:
 def _counts_cast(counts, device) -> torch.Tensor:
     """Keep 16/32-bit integer counts in their narrow dtype (the residual
     kernel converts them as it reads); anything else becomes float32."""
+    profiling.host_upload(counts, device)
     t = torch.as_tensor(counts)
     if t.dtype not in _NARROW_COUNTS:
         t = t.to(torch.float32)

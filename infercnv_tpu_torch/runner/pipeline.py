@@ -536,23 +536,6 @@ def _stream_cuda(engine, src: np.ndarray, out: np.ndarray, chunk: int,
     return secs
 
 
-def _device_probe(engine, probe_src: np.ndarray, nf: float, ml, mr,
-                  n_chunks: int, iters: int = 4) -> float:
-    """Device seconds of the whole transform: one warm chunk, already on
-    the card, timed with CUDA events over `iters` calls and scaled by the
-    chunk count (the reference's probe, :335-368, without jax)."""
-    x = torch.as_tensor(np.ascontiguousarray(probe_src, np.float32)).to(engine.device)
-    engine.transform_chunk(x, nf, ml, mr)
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(iters):
-        engine.transform_chunk(x, nf, ml, mr)
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / 1e3 / iters * n_chunks
-
-
 def _run_engine_residual(obj: InferCNV, cfg: RunConfig, timer: StepTimer,
                          dev: torch.device, mesh=None) -> Optional[list]:
     """STEPS 4-14 as the fused CnvEngine transform (log -> bounds subtract
@@ -614,10 +597,8 @@ def _run_engine_residual(obj: InferCNV, cfg: RunConfig, timer: StepTimer,
             onehot[k, [pos[int(c)] for c in g]] = 1.0
         norm_factor = _norm_factor(obj, mesh)
         ml, mr, _ = engine.ref_stats(obj.expr[ref_idx], norm_factor, onehot)
-        C = obj.num_cells
         base_chunk = cfg.engine_chunk_cells or 16384
         chunk = max(base_chunk // n_dev, 1) * n_dev  # divisible by the mesh
-        probe_src = obj.expr[:chunk]
         out_bytes = obj.num_cells * obj.num_genes * 4
         if (cfg.residual_memmap_gb is not None
                 and out_bytes > cfg.residual_memmap_gb * 1e9):
@@ -643,13 +624,6 @@ def _run_engine_residual(obj: InferCNV, cfg: RunConfig, timer: StepTimer,
     for name, sec in parts.items():
         timer.records.append({"step": f"04-14_engine_transform.{name}",
                               "seconds": round(sec, 4)})
-    if C >= 50_000 and dev.type == "cuda" and mesh is None:
-        n_chunks = -(-C // chunk)
-        dev_s = _device_probe(engine, probe_src, norm_factor, ml, mr, n_chunks)
-        timer.records.append({"step": "04-14_engine_transform.device",
-                              "seconds": round(dev_s, 4)})
-        log_info(f"[timing] 04-14_engine_transform.device: {dev_s:.3f}s "
-                 f"({n_chunks} chunks; wall - device = copy/host time)")
     if obj.hspike is not None:
         with timer.step("04-14_hspike_mirror"):
             _hspike_residual_chain(obj.hspike, cfg,

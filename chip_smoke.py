@@ -14,13 +14,21 @@ Phases, each printing one JSON line:
               backpointers in device memory), with times (CUDA
               events; the one-row smooth and the Viterbi, calls of tens of
               microseconds, as 20 calls in a CUDA graph)
+  ref_stats   ref_stats' three row kernels (log_norm, ref_centred, noise_rows)
+              against their plain versions at the benchmark's shape
+              ([13,108, 8448] u16, 2 groups) and at 8447 genes, each one's
+              ms beside its bound; the engine's ref_stats against the
+              op-by-op form on each path's engine (main, coordinates, wide
+              genome, bf16) and at that shape, with its launches a call
+              (3 where the front fits, else 2) and ms against the ops'
+              (chip_smoke.py --ref-stats runs this phase alone)
   main_path   the bench workload on the port: 8448 genes on 22 chromosomes,
               u16 counts, 32768-cell chunks, 256 reference cells in 2 groups,
               16 subclusters with a planted 0.5x loss on chr2 and 2x gain on
               chr5 in subclusters 8-15: ref_stats, 12 subcluster_chunk calls
               with accumulation, viterbi_group_means; the fused residual,
-              smooth and Viterbi kernels must be launched and the planted
-              CNVs called
+              ref_stats' three and the Viterbi kernels must be launched and
+              the planted CNVs called
   coords_i3_path  coordinate smoothing (10 Mbp window) with the i3 HMM on a
               genome shaped like GRCh38 (human_like_genome, 8448 genes):
               ref_stats, the i3 parameters from the transformed reference
@@ -32,7 +40,7 @@ Phases, each printing one JSON line:
               101, 2 chunks of 8192 cells: the row is too wide for the fused
               kernel, so the general smooth and the median-centred tail run
   bf16_path   the bench workload with matmul_dtype="bfloat16", 2 chunks: the
-              bf16 smooth and the fused kernel's bf16 variant run, and the
+              fused kernel's bf16 variant and its front run, and the
               group-mean states equal the f32 engine's on the same chunks
   reference   the default engine on 512 cells, the card against the CPU
   coords_reference  the coordinates + i3 engine on 512 cells, the card
@@ -173,6 +181,8 @@ WIDE_CHUNK = 8192
 N_SHORT_ITER = 2            # chunks of the wide-genome and bf16 paths
 N_CHECK = 512               # cells of the card-against-CPU checks
 REF_CHUNK = 16384           # rows of ref_stats' chunks above its threshold
+BENCH_REF_CELLS = 13_108    # ref_stats' rows in the benchmark (cnvbench/traffic)
+ODD_REF_CELLS = 1_024       # rows of the 8447-gene ref_stats kernels check
 #: the run phases' objects: 8 observation groups (4-7 with the planted loss
 #: on chr2 and gain on chr5) and 2 reference groups, every group under the
 #: hclust partition's LINKAGE_MAX_CELLS (8,000)
@@ -389,10 +399,14 @@ def make_inputs(dev, go=None, chunk: int = 0, **config):
 
 def counters():
     """Each kernel's launch count: (module, attribute) of its wrapper."""
-    from infercnv_tpu_torch.ops import median, residual_fused, smoothing, viterbi_kernel
+    from infercnv_tpu_torch.ops import (
+        median, ref_stats, residual_fused, smoothing, viterbi_kernel)
 
     return {"residual_fused": (residual_fused, "LAUNCHES"),
             "residual_fused_bf16": (residual_fused, "LAUNCHES_BF16"),
+            "ref_centred": (residual_fused, "LAUNCHES_CENTRED"),
+            "log_norm": (ref_stats, "LAUNCHES_LOG_NORM"),
+            "noise_rows": (ref_stats, "LAUNCHES_NOISE_ROWS"),
             "viterbi": (viterbi_kernel, "LAUNCHES"),
             "smooth_banded": (smoothing, "LAUNCHES"),
             "smooth_banded_bf16": (smoothing, "LAUNCHES_BF16"),
@@ -430,6 +444,12 @@ KERNELS = {
                                "wide_genome_path"),
     "row_median": ("infercnv_tpu_torch/csrc/median.cu",
                    "infercnv_tpu/ops/median.py:95", "coords_i3_path"),
+    "log_norm": ("infercnv_tpu_torch/csrc/ref_stats.cu",
+                 "none (XLA fuses engine.py _ref_stats)", "main_path"),
+    "ref_centred": ("infercnv_tpu_torch/csrc/residual_fused.cu",
+                    "none (XLA fuses engine.py _ref_stats)", "main_path"),
+    "noise_rows": ("infercnv_tpu_torch/csrc/ref_stats.cu",
+                   "none (XLA fuses engine.py _ref_stats)", "main_path"),
 }
 
 
@@ -1885,11 +1905,11 @@ def scale_result(smi, out_dir: Path, rc, seconds: float) -> dict:
 #: phase: (program, its arguments, the kernels it must launch)
 PROGRAMS = {
     "scale1m_cells": ("torch_scale1m", ["cells"],
-                      ("residual_fused", "viterbi", "smooth_banded", "row_median")),
+                      ("residual_fused", "viterbi", "ref_centred", "row_median")),
     "scale1m_subclusters": ("torch_scale1m", ["subclusters"],
-                            ("residual_fused", "viterbi", "smooth_banded", "row_median")),
+                            ("residual_fused", "viterbi", "ref_centred", "row_median")),
     "scale100k": ("torch_scale100k", [],
-                  ("residual_fused", "viterbi", "smooth_banded", "row_median")),
+                  ("residual_fused", "viterbi", "ref_centred", "row_median")),
     "bayes100k": ("torch_bayes100k", [], ("smooth_banded", "row_median")),
     "scale100k_run": ("torch_scale100k_run", [],
                       ("residual_fused", "viterbi", "smooth_banded", "row_median")),
@@ -2641,6 +2661,184 @@ def sync_count(fn) -> dict:
             "sites": dict(Counter(sites))}
 
 
+def ref_stats_ops(engine, counts, nf: float, onehot):
+    """The one-shot ref_stats as separate PyTorch ops (the smooth and the
+    median on kernels 3 or 5 and 7), as the engine ran it before its three
+    row kernels: the yardstick of the engine's ref_stats."""
+    import torch
+
+    from infercnv_tpu_torch.ops.ref_stats import log_norm_plain
+
+    mct = engine.config.max_centered_threshold
+    xlog = log_norm_plain(counts, nf)
+    gn = onehot.sum(dim=1, keepdim=True)
+    ml = (onehot @ xlog) / gn
+    x = torch.clamp(engine._subtract(xlog, ml), -mct, mct)
+    del xlog
+    x = engine._centre(engine._smooth(x))
+    mr = (onehot @ x) / gn
+    final = torch.exp2(engine._subtract(x, mr))
+    sd = final.std(dim=1, correction=1).mean() * engine.config.sd_amplifier
+    return ml, mr, torch.stack([final.mean(), sd])
+
+
+def ref_stats_phase(dev, smi, inp, routes: dict) -> dict:
+    """ref_stats' three row kernels against their plain versions on the card,
+    at the benchmark's shape ([13,108, 8448] u16, 2 groups) and on an
+    8447-gene genome (rows not 16-byte aligned), with kernel 1's tolerance,
+    each one's ms beside its bound; then the engine's ref_stats against the
+    op-by-op form (rtol 1e-5, atol 1e-6; bf16: kernel 1's tolerance) on each
+    engine of routes (name -> (engine, ref counts, nf, onehot)) and at the
+    benchmark's shape, with its launches a call: log_norm and noise_rows
+    always, ref_centred where the engine plans the fused front.  Returns the
+    kernels' rows of the kernel table."""
+    import numpy as np
+    import torch
+
+    from infercnv_tpu_torch.ops.layout import smoothing_operator
+    from infercnv_tpu_torch.ops.ref_stats import (
+        log_norm, log_norm_plain, noise_rows, noise_rows_plain)
+    from infercnv_tpu_torch.ops.residual_fused import ref_centred, ref_centred_plain
+    from infercnv_tpu_torch.ops.smoothing import BandWeights
+
+    def close(got, want, rtol=RESID_TOL, atol=RESID_TOL):
+        err = (got.float() - want.float()).abs()
+        return bool((err <= atol + rtol * want.float().abs()).all()), float(err.max())
+
+    e = inp.engine
+    G = e.gene_order.num_genes
+    mct = e.config.max_centered_threshold
+    rng = np.random.default_rng(SEED + 17)
+    gene_means = torch.tensor(rng.gamma(2.0, 30.0, G), dtype=torch.float32,
+                              device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    R = BENCH_REF_CELLS
+    counts = make_counts(gene_means[None, :].repeat(R, 1), gen)
+    onehot = torch.zeros((2, R), device=dev)
+    onehot[torch.arange(R, device=dev) % 2, torch.arange(R, device=dev)] = 1
+    w7 = BandWeights.from_operator(smoothing_operator(bench_genome(G - 1), 101), dev)
+    cases = {"G8448_R13108": (counts, onehot, e._w_smooth),
+             "G8447_R1024": (counts[:ODD_REF_CELLS, :G - 1].contiguous(),
+                             onehot[:, :ODD_REF_CELLS], w7)}
+    errs = {"log_norm": {}, "ref_centred": {}, "noise_rows": {}}
+    for name, (c, oh, w) in cases.items():
+        gn = oh.sum(dim=1, keepdim=True)
+        xl = log_norm_plain(c, inp.nf)
+        ok, errs["log_norm"][name] = close(log_norm(c, inp.nf), xl)
+        require(ok, f"log_norm ({name}) differs from its plain version")
+        b1 = e._bounds((oh @ xl) / gn)
+        del xl
+        x = ref_centred_plain(c, w, *b1, inp.nf, mct)
+        ok, errs["ref_centred"][name] = close(ref_centred(c, w, *b1, inp.nf, mct), x)
+        require(ok, f"ref_centred ({name}) differs from its plain version")
+        b2 = e._bounds((oh @ x) / gn)
+        ok, errs["noise_rows"][name] = close(noise_rows(x, *b2),
+                                             noise_rows_plain(x, *b2))
+        require(ok, f"noise_rows ({name}) differs from its plain version")
+        del x
+    # times at the benchmark's shape
+    w = e._w_smooth
+    gn = onehot.sum(dim=1, keepdim=True)
+    xl = log_norm(counts, inp.nf)
+    b1 = e._bounds((onehot @ xl) / gn)
+    del xl
+    x = ref_centred(counts, w, *b1, inp.nf, mct)
+    b2 = e._bounds((onehot @ x) / gn)
+    nnz = 2.0 * int((w.band != 0).sum())
+    cells, in_b = R * G, counts.element_size()
+    rows = {
+        "log_norm": dict(
+            ms=time_ms(lambda: log_norm(counts, inp.nf)),
+            plain_ms=time_ms(lambda: log_norm_plain(counts, inp.nf), reps=3),
+            bound=bound(cells * (in_b + 4), 0.0)),
+        "ref_centred": dict(
+            ms=time_ms(lambda: ref_centred(counts, w, *b1, inp.nf, mct)),
+            plain_ms=time_ms(lambda: ref_centred_plain(counts, w, *b1, inp.nf, mct),
+                             reps=3),
+            bound=bound(cells * (in_b + 4), nnz * R)),
+        "noise_rows": dict(
+            ms=time_ms(lambda: noise_rows(x, *b2)),
+            plain_ms=time_ms(lambda: noise_rows_plain(x, *b2), reps=3),
+            bound=bound(cells * 4 + R * 8, 0.0)),
+    }
+    for k, r in rows.items():
+        r.update(max_abs_err=errs[k]["G8448_R13108"], awkward_max_abs_err=errs[k],
+                 library_ms=None, shape=[R, G], bound_ms=r["bound"][0],
+                 bound_by=r["bound"][1])
+    del x
+    # the engine's ref_stats against the op-by-op form, route by route
+    routes = {**routes, "bench_shape": (e, counts, inp.nf, onehot)}
+    engines = {}
+    for name, (eng, c, nf, oh) in routes.items():
+        reset_launches()
+        got = eng.ref_stats(c, nf, oh)
+        torch.cuda.synchronize()
+        n = read_launches()
+        want = ref_stats_ops(eng, c, nf, oh)
+        bf16 = eng._w_smooth.bf16
+        tol = (RESID_TOL, RESID_TOL) if bf16 else (1e-5, 1e-6)
+        err = []
+        for g, o, what in zip(got, want, ("ref_means_log", "ref_means_resid",
+                                          "noise_bounds")):
+            ok, er = close(g, o, *tol)
+            require(ok, f"ref_stats ({name}): {what} differs from the op-by-op "
+                    f"form (max {er})")
+            err.append(er)
+        fused = eng.ref_residual_route == "fused"
+        mine = {k: n[k] for k in ("log_norm", "ref_centred", "noise_rows")}
+        others = sum(v for k, v in n.items() if k not in mine)
+        require(mine == {"log_norm": 1, "ref_centred": int(fused), "noise_rows": 1}
+                and (others == 0 or not fused),
+                f"ref_stats ({name}): launches {n} on the {eng.ref_residual_route} route")
+        engines[name] = dict(
+            route=eng.ref_residual_route, rows=int(c.shape[0]), genes=int(c.shape[1]),
+            launches_a_call=sum(mine.values()), launches=n, max_abs_err=err,
+            ms=time_ms(lambda: eng.ref_stats(c, nf, oh), reps=3),
+            ops_ms=time_ms(lambda: ref_stats_ops(eng, c, nf, oh), reps=3))
+        del got, want
+    emit(phase="ref_stats", card=smi, kernels=rows, engines=engines)
+    del counts
+    torch.cuda.empty_cache()
+    return rows
+
+
+def ref_stats_only(dev) -> int:
+    """chip_smoke.py --ref-stats: the build and the ref_stats phase alone, on
+    the path engines of a full run."""
+    import dataclasses
+
+    import torch
+
+    from infercnv_tpu_torch.ops import _build
+    from infercnv_tpu_torch.parallel.engine import CnvEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = nvidia_smi()
+    t0 = time.perf_counter()
+    lib_path = _build.build()
+    _build.library()
+    ptxas = [ln.strip() for ln in
+             (lib_path.parent / "build.log").read_text().splitlines()
+             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    emit(phase="build", seconds=round(time.perf_counter() - t0, 3), ptxas=ptxas)
+    inp = make_inputs(dev)
+    cin = make_inputs(dev, go=human_like_genome(inp.go.num_genes),
+                      smooth_method="coordinates", window_length=COORD_WINDOW)
+    win = make_inputs(dev, go=human_like_genome(WIDE_GENES), chunk=WIDE_CHUNK)
+    be = CnvEngine(inp.go, inp.hmm,
+                   dataclasses.replace(inp.config, matmul_dtype="bfloat16"), device=dev)
+    ref_stats_phase(dev, smi, inp, ref_stats_routes(inp, cin, win, be))
+    print(json.dumps({"ok": True}), flush=True)
+    return 0
+
+
+def ref_stats_routes(inp, cin, win, be) -> dict:
+    """ref_stats_phase's engines: each path's, on its reference cells."""
+    return {name: (i.engine if eng is None else eng, i.ref_counts, i.nf, i.onehot_ref)
+            for name, i, eng in (("main", inp, None), ("coordinates", cin, None),
+                                 ("wide_genome", win, None), ("bf16", inp, be))}
+
+
 def host_syncs_phase(smi, inp, e3, cin, c_stats) -> None:
     """The program's host_syncs counter against CUDA's sync-debug count, one
     call of each engine route the benchmark drives: ref_stats, the fused
@@ -3216,6 +3414,7 @@ def run(dev) -> int:
     torch.cuda.empty_cache()
     emit(phase="kernels", **{k: {kk: vv for kk, vv in v.items() if kk != "bound"}
                              for k, v in rows.items()})
+    rows.update(ref_stats_phase(dev, smi, inp, ref_stats_routes(inp, cin, win, be)))
     path_launches = {}
 
     # ---- main path ------------------------------------------------------
@@ -3230,7 +3429,7 @@ def run(dev) -> int:
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = path_launches["main_path"] = read_launches()
-    for k in ("residual_fused", "smooth_banded", "viterbi"):
+    for k in ("residual_fused", "log_norm", "ref_centred", "noise_rows", "viterbi"):
         require(launches[k] > 0, f"{k} was not launched on the main path")
     require(tuple(resid.shape) == (CHUNK, G) and bool(torch.isfinite(resid).all()),
             "main path residual is not finite or has the wrong shape")
@@ -3329,7 +3528,7 @@ def run(dev) -> int:
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = path_launches["bf16_path"] = read_launches()
-    for k in ("smooth_banded_bf16", "residual_fused_bf16", "viterbi"):
+    for k in ("ref_centred", "residual_fused_bf16", "viterbi"):
         require(launches[k] > 0, f"{k} was not launched on the bf16 path")
     calls = called(states, go, N_SUB // 2, neutral=3)
     require_calls(calls, "bf16 path")
@@ -3454,6 +3653,8 @@ def main() -> int:
         return fail(f"infercnv_tpu_torch is not beside {Path(__file__).name}")
     sys.path.insert(0, str(ROOT))
     try:
+        if sys.argv[1:2] == ["--ref-stats"]:
+            return ref_stats_only(torch.device("cuda", 0))
         return run(torch.device("cuda", 0))
     except Check as e:
         return fail(str(e))

@@ -82,12 +82,10 @@
 #include <cuda_runtime.h>
 
 #include "band_smooth.cuh"
+#include "count_row.cuh"
 #include "radix_select.cuh"
 
 namespace icnv {
-
-// Input dtype codes (the Python wrapper's _IN_CODES).
-enum InCode { kF32 = 0, kU16 = 1, kI16 = 2, kI32 = 3, kU32 = 4 };
 
 constexpr int kResThreads = 256;  // threads a block
 
@@ -142,39 +140,6 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
   u.y = *reinterpret_cast<unsigned*>(&b);
   __stcs(reinterpret_cast<uint2*>(p), u);
 }
-
-// Row r of the counts: its 16-byte-aligned interior [ia, ib) is read 16
-// bytes a load, the head and tail (under 16 bytes each) one value a load.
-template <typename InT>
-struct CountRow {
-  static constexpr int kVec = 16 / sizeof(InT);
-  union Pack {
-    uint4 u;
-    InT v[kVec];
-  };
-  const InT* glob;
-  int ia, ib;
-  __device__ CountRow(const InT* counts, int r, int G) {
-    glob = counts + (size_t)r * G;
-    const size_t s = reinterpret_cast<size_t>(glob);
-    const size_t e = s + (size_t)G * sizeof(InT);
-    const size_t a = (s + 15) & ~size_t(15);
-    const size_t b = e & ~size_t(15);
-    ia = b > a ? static_cast<int>((a - s) / sizeof(InT)) : G;
-    ib = b > a ? static_cast<int>((b - s) / sizeof(InT)) : G;
-  }
-  __device__ __forceinline__ int nvec() const { return (ib - ia) / kVec; }
-  __device__ __forceinline__ Pack vec(int q) const {
-    Pack p;
-    p.u = __ldg(reinterpret_cast<const uint4*>(glob + ia) + q);
-    return p;
-  }
-  // the i-th value of the head and tail
-  __device__ __forceinline__ int edge_gene(int i) const {
-    return i < ia ? i : ib + (i - ia);
-  }
-  __device__ __forceinline__ int nedge(int G) const { return ia + (G - ib); }
-};
 
 // Gene -> coordinate (g + gap * its segment): the segment starts (seg) and,
 // for each group of 8 genes, the segment of its first gene (grp), both in
@@ -380,11 +345,6 @@ __host__ __device__ inline size_t residual_smem_bytes(const ResidualArgs& a) {
          sizeof(SelectSmem);
 }
 
-// log2(c / cs * nf + 1), rounded at each step as the reference's ops round.
-__device__ __forceinline__ float log_norm(float c, float cs, float nf) {
-  return log2f(__fadd_rn(__fmul_rn(__fdiv_rn(c, cs), nf), 1.0f));
-}
-
 // x of one gene from its log_norm lx: stage-1 bounds (where-form), clip,
 // into slot i of the swizzled row.
 template <bool kBf16>
@@ -408,10 +368,12 @@ __device__ __forceinline__ float residual_of(float y, int g,
   return exp2f(y < lo ? y - lo : above);
 }
 
-// kBf16: round x to bf16 before the smooth (the reference's bf16 flag).
-template <typename InT, typename OutT, bool kBf16>
-__global__ void __launch_bounds__(kResThreads, 4)
-residual_fused_kernel(ResidualArgs p, OutT* __restrict__ out) {
+// The rows of both kernels below.  kBf16: round x to bf16 before the
+// smooth (the reference's bf16 flag).  kCentred: store the centred x of
+// step 5 (f32) and skip step 6.
+template <typename InT, typename OutT, bool kBf16, bool kCentred>
+__device__ __forceinline__ void residual_rows(const ResidualArgs& p,
+                                              OutT* __restrict__ out) {
   extern __shared__ float4 smem4[];
   using Row = CountRow<InT>;
   const RowBand& bd = p.bd;
@@ -464,16 +426,8 @@ residual_fused_kernel(ResidualArgs p, OutT* __restrict__ out) {
     const int nq = cr.nvec();
     const int ne = cr.nedge(G);
 
-    // 1. counts -> f32, row sum (exact for integer counts below 2^24)
-    float part = 0.0f;
-    for (int q = tid; q < nq; q += T) {
-      const typename Row::Pack v = cr.vec(q);
-#pragma unroll
-      for (int j = 0; j < Row::kVec; ++j) part += static_cast<float>(v.v[j]);
-    }
-    for (int i = tid; i < ne; i += T)
-      part += static_cast<float>(cr.glob[cr.edge_gene(i)]);
-    const float cs = block_sum(part, red);
+    // 1. counts -> f32, row sum
+    const float cs = block_sum(cr.part_sum(G), red);
 
     // 2-3. normalise + log2, stage-1 bounds (where-form), clip, into the
     // gene's slot
@@ -512,7 +466,7 @@ residual_fused_kernel(ResidualArgs p, OutT* __restrict__ out) {
 
     // 6. stage-2 bounds, exp2, store (and the denoised copy): a scalar head
     // up to the first 4-aligned element of the output row, 4 a thread, a
-    // scalar tail
+    // scalar tail (kCentred: the centred value y - centre, stored so)
     const size_t base = (size_t)r * G;
     OutT* dst = out + base;
     float* dn = p.denoised == nullptr ? nullptr : p.denoised + base;
@@ -521,7 +475,8 @@ residual_fused_kernel(ResidualArgs p, OutT* __restrict__ out) {
     const int tail = head + 4 * nvec;
     for (int i = tid; i < head + (G - tail); i += T) {
       const int g = i < head ? i : tail + (i - head);
-      const float res = residual_of(row[swz(map.coord(g) + t4)] - centre, g, p);
+      const float y = row[swz(map.coord(g) + t4)] - centre;
+      const float res = kCentred ? y : residual_of(y, g, p);
       dst[g] = store_cast<OutT>(res);
       if (dn != nullptr) dn[g] = (res > dn_lo && res < dn_hi) ? dn_mean : res;
     }
@@ -535,7 +490,8 @@ residual_fused_kernel(ResidualArgs p, OutT* __restrict__ out) {
         y[j] = row[swz(i0 + j + (g + j >= next ? bd.gap : 0))];
       float res[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) res[j] = residual_of(y[j] - centre, g + j, p);
+      for (int j = 0; j < 4; ++j)
+        res[j] = kCentred ? y[j] - centre : residual_of(y[j] - centre, g + j, p);
       store4(dst + g, make_float4(res[0], res[1], res[2], res[3]));
       if (dn != nullptr) {
 #pragma unroll
@@ -547,11 +503,28 @@ residual_fused_kernel(ResidualArgs p, OutT* __restrict__ out) {
   }
 }
 
-template <typename InT, typename OutT>
-cudaError_t launch_residual(const ResidualArgs& a, void* out, size_t smem,
-                            cudaStream_t stream) {
-  auto kern = a.bf16 ? residual_fused_kernel<InT, OutT, true>
-                     : residual_fused_kernel<InT, OutT, false>;
+// Kernel 1: counts in, the final residual out (steps 1-6).
+template <typename InT, typename OutT, bool kBf16>
+__global__ void __launch_bounds__(kResThreads, 4)
+residual_fused_kernel(ResidualArgs p, OutT* __restrict__ out) {
+  residual_rows<InT, OutT, kBf16, false>(p, out);
+}
+
+// Kernel 1's front, for CnvEngine.ref_stats: counts in, the centred x of
+// step 5 out in f32 (the reference's x before its stage-2 bounds), whose
+// group means are the second subtraction's.  A kernel of its own name, so
+// that kernel 1's time and roofline stay the chunks'.  At ref_stats'
+// 13,108 x 8448 u16 it moves 664 MB (0.198 ms) and smooths 20.9 GFLOP
+// (0.312 ms): bound by operations, as kernel 1 at its chunks.
+template <typename InT, bool kBf16>
+__global__ void __launch_bounds__(kResThreads, 4)
+ref_centred_kernel(ResidualArgs p, float* __restrict__ out) {
+  residual_rows<InT, float, kBf16, true>(p, out);
+}
+
+template <typename OutT>
+cudaError_t launch_rows(void (*kern)(ResidualArgs, OutT*), const ResidualArgs& a,
+                        void* out, size_t smem, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   int dev = 0, nsm = 0, per_sm = 0;
@@ -568,10 +541,23 @@ cudaError_t launch_residual(const ResidualArgs& a, void* out, size_t smem,
   return cudaGetLastError();
 }
 
+template <typename InT, typename OutT>
+cudaError_t launch_residual(const ResidualArgs& a, void* out, size_t smem,
+                            cudaStream_t s) {
+  return launch_rows<OutT>(a.bf16 ? residual_fused_kernel<InT, OutT, true>
+                                  : residual_fused_kernel<InT, OutT, false>,
+                           a, out, smem, s);
+}
+
+// out_code -1: the front (ref_centred_kernel), f32 out.
 template <typename InT>
 cudaError_t launch_out(const ResidualArgs& a, void* out, int out_code,
                        size_t smem, cudaStream_t s) {
   switch (out_code) {
+    case -1:
+      return launch_rows<float>(a.bf16 ? ref_centred_kernel<InT, true>
+                                       : ref_centred_kernel<InT, false>,
+                                a, out, smem, s);
     case 1:
       return launch_residual<InT, __half>(a, out, smem, s);
     case 2:
@@ -583,7 +569,9 @@ cudaError_t launch_out(const ResidualArgs& a, void* out, int out_code,
 
 }  // namespace icnv
 
-// in_code: icnv::InCode; out_code: 0 f32, 1 f16, 2 bf16.
+// in_code: icnv::InCode; out_code: 0 f32, 1 f16, 2 bf16, or -1 for kernel
+// 1's front (ref_centred_kernel: the centred x in f32; b2min, b2max, noise
+// and denoised unused, null).
 // bf16: round x to bf16 before the smooth (band4 / common must then hold
 // bf16-rounded weights).
 // noise: device [2] (mean_ref, spread) and denoised: [C, G] f32, or both null.
@@ -606,8 +594,9 @@ extern "C" int ic_residual_fused(
       (nseg > 1 && gap < t4) || span != G + gap * (nseg - 1) || n_items < 0 ||
       n_sitems < 0 || n_items + n_sitems > (span + kGroup - 1) / kGroup ||
       (n_sitems > 0 && !bf16) || n_general < 0 || n_general > G ||
-      in_code < 0 || in_code > kU32 || out_code < 0 || out_code > 2 ||
-      (noise == nullptr) != (denoised == nullptr))
+      in_code < 0 || in_code > kU32 || out_code < -1 || out_code > 2 ||
+      (noise == nullptr) != (denoised == nullptr) ||
+      (out_code == -1 && noise != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (C == 0) return 0;
   int dev = 0, optin = 0;

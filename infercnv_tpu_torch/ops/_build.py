@@ -43,6 +43,8 @@ _SIGNATURES = {
     "ic_residual_fused": ([_P, _I, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _I,
                            _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _F, _F,
                            _I, _I, _P, _I, _P, _P, _I, _I, _I, _P], _I),
+    "ic_log_norm": ([_P, _I, _F, _I, _I, _P, _P], _I),
+    "ic_noise_rows": ([_P, _P, _P, _I, _I, _P, _P], _I),
     "ic_row_median": ([_P, _I, _I, _I, _P, *[_I] * 6, _P], _I),
     "ic_median_center_residual": ([_P, _I, _P, _P, _P, _I, _P, _I, _I,
                                    *[_I] * 6, _P], _I),

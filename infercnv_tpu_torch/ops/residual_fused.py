@@ -17,6 +17,11 @@ kernel writes in the same pass.  Given bf16 weights
 (``BandWeights(bf16=True)``), the smooth's operands are rounded to bf16 and
 summed in f32: the reference kernel's ``bf16`` flag
 (infercnv_tpu/ops/residual_fused.py:138-143, ``matmul_dtype="bfloat16"``).
+
+``ref_centred`` runs the same kernel's front as a kernel of its own name
+(``ref_centred_kernel``): counts in, the centred x before the stage-2
+bounds out, for ``CnvEngine.ref_stats``; ``ref_centred_plain`` is those
+first ops of ``residual_fused_plain``.
 """
 
 from __future__ import annotations
@@ -30,9 +35,11 @@ from infercnv_tpu_torch.ops.median import row_median_plain
 from infercnv_tpu_torch.ops.smoothing import BandWeights, apply_banded_plain, swz_row_len
 
 #: launches of the CUDA kernel (the plain version does not count), with f32
-#: weights and with bf16 ones (the reference's bf16 flag)
+#: weights and with bf16 ones (the reference's bf16 flag), and of its front
+#: (either weights)
 LAUNCHES = 0
 LAUNCHES_BF16 = 0
+LAUNCHES_CENTRED = 0
 
 #: the median select's shared memory (sizeof(SelectSmem) of
 #: csrc/radix_select.cuh: 2048 histogram bins, 32 warp sums, 4 words)
@@ -93,11 +100,9 @@ def fits(w: BandWeights, smem_optin: int) -> bool:
             and smem_bytes(w) <= smem_optin)
 
 
-def residual_fused_plain(counts: torch.Tensor, w: BandWeights,
-                         b1min, b1max, b2min, b2max, norm_factor: float,
-                         mct: float = 3.0, center_mean: bool = False,
-                         out_dtype: torch.dtype = torch.float32,
-                         noise_bounds: Optional[torch.Tensor] = None):
+def ref_centred_plain(counts: torch.Tensor, w: BandWeights, b1min, b1max,
+                      norm_factor: float, mct: float = 3.0,
+                      center_mean: bool = False) -> torch.Tensor:
     c = counts_to_f32(counts)
     nf = torch.tensor(norm_factor, dtype=torch.float32, device=c.device)
     cs = c.sum(dim=1, keepdim=True)
@@ -109,7 +114,17 @@ def residual_fused_plain(counts: torch.Tensor, w: BandWeights,
         centre = y.sum(dim=1, keepdim=True) / float(w.num_genes)
     else:
         centre = row_median_plain(y)[:, None]
-    resid = torch.exp2(where_bounds(y - centre, b2min, b2max))
+    return y - centre
+
+
+def residual_fused_plain(counts: torch.Tensor, w: BandWeights,
+                         b1min, b1max, b2min, b2max, norm_factor: float,
+                         mct: float = 3.0, center_mean: bool = False,
+                         out_dtype: torch.dtype = torch.float32,
+                         noise_bounds: Optional[torch.Tensor] = None):
+    y = ref_centred_plain(counts, w, b1min, b1max, norm_factor, mct,
+                          center_mean)
+    resid = torch.exp2(where_bounds(y, b2min, b2max))
     if noise_bounds is not None:
         return resid, denoise(resid, noise_bounds)
     return resid.to(out_dtype)
@@ -134,22 +149,9 @@ def residual_fused(counts: torch.Tensor, w: BandWeights,
                                     norm_factor, mct, center_mean, out_dtype,
                                     noise_bounds)
     global LAUNCHES, LAUNCHES_BF16
-    if counts.dtype not in _IN_CODES:
-        raise ValueError(f"residual_fused: counts dtype {counts.dtype} not in "
-                         f"{list(_IN_CODES)}")
     if out_dtype not in _OUT_CODES:
         raise ValueError(f"residual_fused: out_dtype {out_dtype} not in "
                          f"{list(_OUT_CODES)}")
-    G = w.num_genes
-    if counts.dim() != 2 or counts.shape[1] != G:
-        raise ValueError(f"residual_fused: counts {tuple(counts.shape)} for {G} genes")
-    bounds = [b.reshape(-1) for b in (b1min, b1max, b2min, b2max)]
-    for b in bounds:
-        if b.dtype != torch.float32 or b.shape[0] != G:
-            raise ValueError("residual_fused: bounds must be f32 rows of G")
-    _build.check_inputs("residual_fused", counts, w.band4, w.common,
-                        *w.row.values(), *bounds)
-    lib = _build.library()
     out = torch.empty(counts.shape, dtype=out_dtype, device=counts.device)
     noise = denoised = None
     if noise_bounds is not None:
@@ -159,18 +161,59 @@ def residual_fused(counts: torch.Tensor, w: BandWeights,
         _build.check_inputs("residual_fused", counts, noise)
         denoised = torch.empty(counts.shape, dtype=torch.float32,
                                device=counts.device)
-    with torch.cuda.device(counts.device):
-        rc = lib.ic_residual_fused(
-            _build.ptr(counts), _IN_CODES[counts.dtype], *w.fused_args(),
-            *(_build.ptr(b) for b in bounds), float(norm_factor), float(mct),
-            int(center_mean), int(w.bf16), _build.ptr(out),
-            _OUT_CODES[out_dtype],
-            None if noise is None else _build.ptr(noise),
-            None if denoised is None else _build.ptr(denoised),
-            counts.shape[0], G, w.halfband4, _build.stream_of(counts))
-    _build.check(rc, "residual_fused")
+    _launch("residual_fused", counts, w, (b1min, b1max, b2min, b2max),
+            norm_factor, mct, center_mean, out, _OUT_CODES[out_dtype],
+            noise, denoised)
     if w.bf16:
         LAUNCHES_BF16 += 1
     else:
         LAUNCHES += 1
     return out if denoised is None else (out, denoised)
+
+
+def ref_centred(counts: torch.Tensor, w: BandWeights, b1min: torch.Tensor,
+                b1max: torch.Tensor, norm_factor: float, mct: float = 3.0,
+                center_mean: bool = False) -> torch.Tensor:
+    """counts [C, G] -> the centred x [C, G] f32 of residual_fused before
+    its stage-2 bounds (kernel 1's steps 1-5: normalise, log2, stage-1
+    bounds, clip, smooth, median or mean centre).  CPU tensors take the
+    plain version; CUDA tensors launch ``ref_centred_kernel``, which needs
+    fits(w, ...)."""
+    if counts.device.type == "cpu":
+        return ref_centred_plain(counts, w, b1min, b1max, norm_factor, mct,
+                                 center_mean)
+    global LAUNCHES_CENTRED
+    out = torch.empty(counts.shape, dtype=torch.float32, device=counts.device)
+    _launch("ref_centred", counts, w, (b1min, b1max), norm_factor, mct,
+            center_mean, out, -1)
+    LAUNCHES_CENTRED += 1
+    return out
+
+
+def _launch(name: str, counts: torch.Tensor, w: BandWeights, bounds,
+            norm_factor: float, mct: float, center_mean: bool,
+            out: torch.Tensor, out_code: int, noise=None, denoised=None):
+    """ic_residual_fused on checked inputs: bounds are b1min, b1max and,
+    except for the front (out_code -1), b2min, b2max."""
+    if counts.dtype not in _IN_CODES:
+        raise ValueError(f"{name}: counts dtype {counts.dtype} not in "
+                         f"{list(_IN_CODES)}")
+    G = w.num_genes
+    if counts.dim() != 2 or counts.shape[1] != G:
+        raise ValueError(f"{name}: counts {tuple(counts.shape)} for {G} genes")
+    bounds = [b.reshape(-1) for b in bounds]
+    for b in bounds:
+        if b.dtype != torch.float32 or b.shape[0] != G:
+            raise ValueError(f"{name}: bounds must be f32 rows of G")
+    _build.check_inputs(name, counts, w.band4, w.common, *w.row.values(),
+                        *bounds)
+    ptrs = [_build.ptr(b) for b in bounds] + [None] * (4 - len(bounds))
+    with torch.cuda.device(counts.device):
+        rc = _build.library().ic_residual_fused(
+            _build.ptr(counts), _IN_CODES[counts.dtype], *w.fused_args(),
+            *ptrs, float(norm_factor), float(mct), int(center_mean),
+            int(w.bf16), _build.ptr(out), out_code,
+            None if noise is None else _build.ptr(noise),
+            None if denoised is None else _build.ptr(denoised),
+            counts.shape[0], G, w.halfband4, _build.stream_of(counts))
+    _build.check(rc, name)

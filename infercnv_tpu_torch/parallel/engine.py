@@ -35,8 +35,17 @@ never by trying a launch (``residual_route``):
 On an H100 (227 KB a block) a pyramidal band of 101 genes fits the fused
 kernel up to ~56k genes.  That threshold is the card's own: the reference's
 TPU threshold is its VMEM budget (residual_fused._pick_tile_r), and the
-results are the same on either route.  ``ref_stats`` smooths with the
-one-row kernel (halfband <= 64 and the row fits), else with the tiled one.
+results are the same on either route.
+
+``ref_stats``' one-shot form runs three row kernels, with the two group
+sums as torch.matmul between them: the log-normalise kernel
+(ops/ref_stats.py ``log_norm``); kernel 1's front (``ref_centred``: counts
+to the centred x, stored before the stage-2 bounds) where its smooth's
+weights fit the fused kernel (``ref_residual_route`` "fused"), else the
+ops of the wide-band route on the log-normalised x (one-row smooth for
+halfband <= 64 where the row fits, else the tiled one; "ops"); and the
+noise-bound kernel (``noise_rows``: each row's sum and sd of the bounded
+exp2).  The statistics, their op order and rounding are the reference's.
 
 Every entry point runs on the engine's device: CUDA unless the caller
 passes ``device="cpu"``, where each kernel wrapper runs its plain PyTorch
@@ -75,9 +84,10 @@ from infercnv_tpu_torch.ops.layout import (
     smoothing_operator,
 )
 from infercnv_tpu_torch.ops.median import median_center_residual, row_median
+from infercnv_tpu_torch.ops.ref_stats import log_norm, log_norm_plain, noise_rows
 from infercnv_tpu_torch.ops.residual_fused import (
-    counts_to_f32,
     denoise,
+    ref_centred,
     residual_fused,
     where_bounds,
 )
@@ -185,6 +195,11 @@ class CnvEngine:
             self.residual_route = "wide_genome"
         else:
             self.residual_route = "wide_band"
+        #: the second pass of the one-shot ref_stats: "fused" (kernel 1's
+        #: front, with the weights of its smooth) or "ops"
+        self.ref_residual_route = (
+            "fused" if op.side_tiles == 1 and _fused.fits(self._w_smooth, smem)
+            else "ops")
         self._layout = PackedLayout.from_gene_order(gene_order)
         self._means = np.asarray(hmm.means, np.float32)
         self._sigma = float(np.float32(np.median(hmm.sds)))
@@ -216,15 +231,20 @@ class CnvEngine:
             return where_bounds(x, grp_means.amin(dim=0), grp_means.amax(dim=0))
         return x - grp_means.mean(dim=0)
 
+    def _bounds(self, grp_means):
+        """The where-form bounds (lo, hi) rows of a subtraction stage; with
+        min == max == mean they equal ``x - mean`` exactly, so the
+        no-bounds configuration takes the same kernels."""
+        if self.config.ref_subtract_use_bounds:
+            return (grp_means.amin(dim=0).contiguous(),
+                    grp_means.amax(dim=0).contiguous())
+        m = grp_means.mean(dim=0).contiguous()
+        return m, m
+
     def _centre(self, x):
         if self.config.center_method == "median":
             return x - row_median(x)[:, None]
         return x - x.mean(dim=1, keepdim=True)
-
-    def _log_norm(self, counts, nf):
-        c = counts_to_f32(counts)
-        cs = c.sum(dim=1, keepdim=True)
-        return torch.log2(c / cs * nf + 1.0)
 
     def _smooth(self, x):
         if self.smooth_route == "row":
@@ -234,7 +254,7 @@ class CnvEngine:
     def _clipped_x(self, counts, nf, ref_means_log):
         """Normalise + log2, stage-1 bounds, clip: the first ops of every
         unfused residual (reference engine.py:252-255)."""
-        x = self._subtract(self._log_norm(counts, nf), ref_means_log)
+        x = self._subtract(log_norm_plain(counts, nf), ref_means_log)
         mct = self.config.max_centered_threshold
         return torch.clamp(x, -mct, mct)
 
@@ -244,24 +264,17 @@ class CnvEngine:
 
     def _residual(self, counts, norm_factor, ref_means_log, ref_means_resid,
                   out_dtype: torch.dtype = torch.float32, noise_bounds=None):
-        """The residual on the engine's route.  The where-form bounds with
-        min == max == mean equal ``x - mean`` exactly, so the no-bounds
-        configuration takes the same kernels.  With noise_bounds it returns
-        (residual, denoised residual)."""
+        """The residual on the engine's route (the bounds as ``_bounds``).
+        With noise_bounds it returns (residual, denoised residual)."""
         with self._span("icnv.residual"):
             cfg = self.config
-            if cfg.ref_subtract_use_bounds:
-                b1min, b1max = ref_means_log.amin(dim=0), ref_means_log.amax(dim=0)
-                b2min, b2max = ref_means_resid.amin(dim=0), ref_means_resid.amax(dim=0)
-            else:
-                b1min = b1max = ref_means_log.mean(dim=0)
-                b2min = b2max = ref_means_resid.mean(dim=0)
+            b1min, b1max = self._bounds(ref_means_log)
+            b2min, b2max = self._bounds(ref_means_resid)
             # the norm factor is read on the host on every route
             profiling.host_read(norm_factor)
             if self.residual_route == "fused":
                 return residual_fused(
-                    counts, self._w_fused, b1min.contiguous(), b1max.contiguous(),
-                    b2min.contiguous(), b2max.contiguous(), norm_factor,
+                    counts, self._w_fused, b1min, b1max, b2min, b2max, norm_factor,
                     mct=cfg.max_centered_threshold,
                     center_mean=(cfg.center_method != "median"),
                     out_dtype=out_dtype, noise_bounds=noise_bounds)
@@ -274,8 +287,7 @@ class CnvEngine:
             if self.residual_route == "wide_genome":
                 # one kernel centres on the median and applies the bounds
                 with self._span("icnv.residual.tail"):
-                    resid = median_center_residual(y, b2min.contiguous(),
-                                                   b2max.contiguous(), y.shape[1])
+                    resid = median_center_residual(y, b2min, b2max, y.shape[1])
             else:
                 with self._span("icnv.residual.centre"):
                     y = self._centre(y)
@@ -314,21 +326,30 @@ class CnvEngine:
     # reference statistics
     # ------------------------------------------------------------------
 
-    def _ref_stats_oneshot(self, ref_counts, nf, group_onehot) -> Stats:
+    def _ref_stats_oneshot(self, ref_counts, nf: float, group_onehot) -> Stats:
+        """Three row passes (see the module's docstring); nf a host float."""
+        cfg = self.config
+        mct = cfg.max_centered_threshold
         with self._span("icnv.ref_stats.means_log"):
-            xlog = self._log_norm(ref_counts, nf)
+            xlog = log_norm(ref_counts, nf)
             gn = group_onehot.sum(dim=1, keepdim=True)
             ref_means_log = (group_onehot @ xlog) / gn
         with self._span("icnv.ref_stats.residual"):
-            x = self._subtract(xlog, ref_means_log)
-            mct = self.config.max_centered_threshold
-            x = self._centre(self._smooth(torch.clamp(x, -mct, mct)))
+            if self.ref_residual_route == "fused":
+                del xlog
+                x = ref_centred(ref_counts, self._w_smooth,
+                                *self._bounds(ref_means_log), nf, mct,
+                                center_mean=(cfg.center_method != "median"))
+            else:
+                x = self._subtract(xlog, ref_means_log)
+                del xlog
+                x = self._centre(self._smooth(torch.clamp(x, -mct, mct)))
             ref_means_resid = (group_onehot @ x) / gn
         # denoise bounds on the pooled reference residuals (:2302-2346)
         with self._span("icnv.ref_stats.noise_bounds"):
-            final = torch.exp2(self._subtract(x, ref_means_resid))
-            mean_ref = final.mean()
-            sd_ref = final.std(dim=1, correction=1).mean() * self.config.sd_amplifier
+            rows = noise_rows(x, *self._bounds(ref_means_resid))
+            mean_ref = rows[:, 0].sum() / x.numel()
+            sd_ref = rows[:, 1].mean() * cfg.sd_amplifier
             return ref_means_log, ref_means_resid, torch.stack([mean_ref, sd_ref])
 
     def _ref_stats_streamed(self, ref_counts, norm_factor, group_onehot,
@@ -353,7 +374,7 @@ class CnvEngine:
             gsum = np.zeros((K, G), np.float64)
             for c, oh in chunks():
                 profiling.host_sync(self.device)
-                gsum += (oh @ self._log_norm(c, nf)).double().cpu().numpy()
+                gsum += (oh @ log_norm_plain(c, nf)).double().cpu().numpy()
             ml = self._f32((gsum / gn).astype(np.float32))
         with self._span("icnv.ref_stats.residual"):
             gsum2 = np.zeros((K, G), np.float64)
@@ -388,7 +409,8 @@ class CnvEngine:
                 return self._ref_stats_streamed(ref_counts, norm_factor,
                                                 group_onehot)
             counts = _counts_cast(ref_counts, self.device)
-            return self._ref_stats_oneshot(counts, self._f32(norm_factor),
+            profiling.host_read(norm_factor)
+            return self._ref_stats_oneshot(counts, float(norm_factor),
                                            self._f32(group_onehot))
 
     def engine_on(self, device: torch.device) -> "CnvEngine":

@@ -16,6 +16,7 @@ import torch
 import infercnv_tpu_torch
 from infercnv_tpu_torch.ops import _build
 from infercnv_tpu_torch.ops import median as tmed
+from infercnv_tpu_torch.ops import ref_stats as tref
 from infercnv_tpu_torch.ops import residual_fused as tres
 from infercnv_tpu_torch.ops import smoothing as tsmooth
 from infercnv_tpu_torch.ops import viterbi_kernel as tvit
@@ -110,7 +111,7 @@ def test_cpu_wrappers_build_nothing():
     wb = tsmooth.BandWeights.from_operator(smoothing_operator(tgo, 11), "cpu",
                                            bf16=True)
     x = torch.ones((3, 120))
-    counters = [(m, name) for m in (tres, tsmooth, tvit, tmed)
+    counters = [(m, name) for m in (tres, tsmooth, tvit, tmed, tref)
                 for name in dir(m) if name.startswith("LAUNCHES")]
     counts = {c: getattr(*c) for c in counters}
     tsmooth.apply_banded(x, w)
@@ -119,13 +120,17 @@ def test_cpu_wrappers_build_nothing():
     z = torch.zeros(120)
     tres.residual_fused(x, w, z, z, z, z, 100.0)
     tres.residual_fused(x, wb, z, z, z, z, 100.0)
+    tres.ref_centred(x, w, z, z, 100.0)
+    tres.ref_centred(x, wb, z, z, 100.0)
+    tref.log_norm(x, 100.0)
+    tref.noise_rows(x, z, z)
     tmed.row_median(x)
     tmed.median_center_residual(x, z, z, 120)
     for S in (3, 6):
         tvit.viterbi(x, torch.full((3,), 120), torch.ones(3),
                      torch.zeros((3, 120), dtype=torch.int8),
                      np.arange(S) / 2.0, np.zeros(S), -1e-6, -13.8)
-    assert len(counts) == 8
+    assert len(counts) == 11
     assert {c: getattr(*c) for c in counters} == counts
     assert _build._library is None
 

@@ -4,9 +4,10 @@
         [--control-seeds 7 8 9] [--fault-seeds 4 5 6 --faults altered_answer ...] \
         [--seconds 3] [--control-seconds 30]
 
-In one process on the GPU: the numbers compared (cnvbench/check.py) for
-the program on each of --seeds, for the control (the reference in TF32 in
-the program's place, cnvbench/system.py ReferenceSystem) on each of
+In one process on the GPU: the numbers that the cell's job kind compares
+(for the engine, cnvbench/check.py) for the program on each of --seeds,
+for the kind's control (for the engine, the reference in TF32 in the
+program's place, cnvbench/system.py ReferenceSystem) on each of
 --control-seeds, and for each planted fault (cnvbench/faults.py) on each of
 --fault-seeds, each after a window of --seconds (the control's of
 --control-seconds, long enough for it to finish as many jobs as the check
@@ -32,7 +33,6 @@ if __name__ == "__main__":
 
 def main(argv=None) -> int:
     from cnvbench import faults, run
-    from cnvbench.system import ReferenceSystem
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", required=True)
@@ -52,17 +52,17 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     cell = run.load_cell(args.workload)
     dev = torch.device("cuda", 0)
-    runs = ([("program", s, None) for s in args.seeds]
-            + [("control", s, ReferenceSystem) for s in args.control_seeds]
-            + [(f, s, None) for f in args.faults for s in args.fault_seeds])
-    for what, seed, system in runs:
+    runs = ([("program", s, False) for s in args.seeds]
+            + [("control", s, True) for s in args.control_seeds]
+            + [(f, s, False) for f in args.faults for s in args.fault_seeds])
+    for what, seed, control in runs:
         t = time.perf_counter()
         ctx = (faults.planted(what) if what in faults.FAULTS
                else contextlib.nullcontext())
         with ctx:
-            out = run.run_cell(cell, seed, args.control_seconds if system
+            out = run.run_cell(cell, seed, args.control_seconds if control
                                else args.seconds, False, dev,
-                               make_system=system, t0=t)
+                               control=control, t0=t)
         print(json.dumps({"workload": args.workload, "what": what, "seed": seed,
                           "jobs": out["jobs"], "correct": out["correct"],
                           "numbers": {k: v["value"] for k, v in out["checks"].items()},

@@ -4,16 +4,17 @@
 
 Reads the cell from BENCHMARK.json at the checkout's root, its
 configuration (cnvbench/configs/<config>.json), its traffic mix
-(cnvbench/traffic/<traffic>.json) and its limits
-(cnvbench/limits/<workload>.json); each metric is computed by its reader,
-cnvbench/metrics/<metric>.py.  Set-up draws the cohort on the GPU from the
-seed, builds the program's engines and runs warm jobs of the cell's own
-shapes; the window runs jobs back to back for ``--seconds`` (the job under
-way when the time runs out is finished and counted); with ``--trace 1`` the
-window is traced by torch.profiler and the per-layer metrics are reported
-instead of the end-to-end ones.  After the window the program's state is
-freed and a sample of the jobs is compared with the float64 reference
-(cnvbench/check.py).  The last line of standard output is one JSON object:
+(cnvbench/traffic/<traffic>.json), its job kind (cnvbench/jobs/<kind>.py,
+named by the traffic's ``"job"``, "engine" where it names none) and its
+limits (cnvbench/limits/<workload>.json); each metric is computed by its
+reader, cnvbench/metrics/<metric>.py.  Set-up draws the kind's data on the
+GPU from the seed, builds the program's system and runs warm jobs of the
+cell's own shapes; the window runs jobs back to back for ``--seconds`` (the
+job under way when the time runs out is finished and counted); with
+``--trace 1`` the window is traced by torch.profiler and the per-layer
+metrics are reported instead of the end-to-end ones.  After the window the
+program's state is freed and the kind compares a sample of the jobs with
+its plain reference.  The last line of standard output is one JSON object:
 correct, attempted, failed, metrics, device[, breakdown], checks.
 
 Exits non-zero, printing no result, without a CUDA device (there is no CPU
@@ -31,6 +32,7 @@ import importlib.util  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
 import os  # noqa: E402
+import re  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 import types  # noqa: E402
@@ -49,6 +51,9 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "infercnv_tpu")
 #: build and kernel caches, at fixed paths inside the checkout
 CACHES = {"TORCH_EXTENSIONS_DIR": "torch_extensions", "TRITON_CACHE_DIR": "triton",
           "CUDA_CACHE_PATH": "cuda_jit"}
+#: the job kind of a traffic file that names none
+DEFAULT_JOB = "engine"
+_KIND = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_\-]{0,63}$")
 
 
 def load_json(path: Path) -> dict:
@@ -65,10 +70,32 @@ def load_cell(name: str, root: Path = ROOT) -> dict:
         raise SystemExit(f"cnvbench: no workload {name!r} in BENCHMARK.json")
     w = cells[name]
     config_entry = {c["name"]: c for c in spec["configs"]}[w["config"]]
+    traffic = load_json(HERE / "traffic" / f"{w['traffic']}.json")
+    job_file(traffic)
     return {"workload": w, "spec": spec,
             "config": load_json(root / config_entry["file"]),
-            "traffic": load_json(HERE / "traffic" / f"{w['traffic']}.json"),
+            "traffic": traffic,
             "limits": load_json(HERE / "limits" / f"{name}.json")}
+
+
+def job_file(traffic: dict) -> Path:
+    """The file of the traffic's job kind; stops the run where there is none."""
+    kind = traffic.get("job", DEFAULT_JOB)
+    path = HERE / "jobs" / f"{kind}.py"
+    if not (isinstance(kind, str) and _KIND.match(kind) and path.is_file()):
+        raise SystemExit(f"cnvbench: unknown job kind {kind!r}: looked for {path}")
+    return path
+
+
+def job_kind(traffic: dict) -> types.ModuleType:
+    """The traffic's job kind (cnvbench/jobs/__init__.py says what it gives)."""
+    path = job_file(traffic)
+    name = f"cnvbench.jobs.{path.stem}"
+    mod_spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(mod_spec)
+    sys.modules[name] = mod       # where dataclasses look up its annotations
+    mod_spec.loader.exec_module(mod)
+    return mod
 
 
 def cell_metrics(spec: dict, name: str, kind: str) -> list:
@@ -123,54 +150,49 @@ def launch_counts() -> dict:
 
 
 def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device,
-             make_system=None, t0: float = None) -> dict:
+             control: bool = False, t0: float = None) -> dict:
     """Set-up, window and comparison of one cell; returns what the result
-    line is made of (no printing).  make_system defaults to the port."""
+    line is made of (no printing).  The cell's job kind gives the data, the
+    system (its control in the port's place where ``control``), the jobs
+    kept for the check, the facts the readers take and the comparison."""
     import numpy as np
     import torch
 
-    from cnvbench import check, reference
+    from cnvbench import check
     from cnvbench import trace as tracing
-    from cnvbench.cohort import draw_cohort
-    from cnvbench.genomes import make_genome
-    from cnvbench.system import Keep, PortSystem, Spans
 
     t0 = T0 if t0 is None else t0
     device = torch.device(device)
     cuda = device.type == "cuda"
     config, traffic = cell["config"], cell["traffic"]
-    make_system = make_system or PortSystem
+    job = job_kind(traffic)
     parts = {}
 
     def part(name, since):
+        if cuda:
+            torch.cuda.synchronize(device)
         now = time.perf_counter()
         parts[name] = now - since
         return now
 
     t = time.perf_counter()
-    genome = make_genome(config["genome"])
-    cohort = draw_cohort(traffic, genome, seed, device)
-    if cuda:
-        torch.cuda.synchronize(device)
-    t = part("cohort_draws", t)
-    system = make_system(config, genome, cohort, traffic, device)
-    keep = Keep(system.spans, int(traffic["check"]["rows_per_chunk"]),
-                int(traffic["check"]["jobs"]), genome.num_genes, seed, device)
-    if cuda:
-        torch.cuda.synchronize(device)
-    t = part("samples_and_engines", t)
-    off = Spans(False)
+    data = job.draw(config, traffic, seed, device)
+    t = part(job.SETUP_PARTS[0], t)
+    system = (job.control if control else job.port)(config, traffic, data, device)
+    keep = job.keep(config, traffic, data, system, seed, device)
+    facts = job.facts(config, traffic, data, system, trace)
+    t = part(job.SETUP_PARTS[1], t)
+    samples = int(facts["samples"])
+    off = tracing.Spans(False)
     for j in range(int(traffic["warm_jobs"])):
-        # the first warm job also copies its rows for the check, as the
+        # the first warm job also keeps what the check compares, as the
         # window's sampled jobs do, so that no kernel loads in the window
-        system.job(j, j % cohort.samples, keep, 0 if j == 0 else None, off)
-    if cuda:
-        torch.cuda.synchronize(device)
+        system.job(j, j % samples, keep, 0 if j == 0 else None, off)
     part("warm_jobs", t)
     before = launch_counts()
     setup_s = time.perf_counter() - t0
 
-    spans = Spans(trace)
+    spans = tracing.Spans(trace)
     prof = (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                torch.profiler.ProfilerActivity.CUDA])
             if trace else None)
@@ -187,7 +209,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device,
         while time.perf_counter() - t_start < seconds or j == 0:
             slot = keep.offer(j)
             a = time.perf_counter()
-            r = system.job(j, j % cohort.samples, keep, slot, spans)
+            r = system.job(j, j % samples, keep, slot, spans)
             job_s.append(time.perf_counter() - a)
             if slot is not None:
                 results[slot] = r
@@ -206,11 +228,8 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device,
 
     ctx = types.SimpleNamespace(
         setup_s=setup_s, window_s=t_end - t_start, job_seconds=job_s, jobs=jobs,
-        cells_done=jobs * cohort.cells, cells_per_job=cohort.cells,
-        ref_cells=cohort.n_ref, genes=genome.num_genes,
-        chunks_per_job=len(system.spans), spans=spans,
-        hmm_states=6 if config["hmm"]["type"] == "i6" else 3,
-        trace=None, library=set(), notes={}, band_nonzeros=0)
+        cells_done=jobs * facts["cells_per_job"], spans=spans,
+        trace=None, library=set(), notes={}, **facts)
     out = {"jobs": jobs, "setup_s": setup_s, "setup_parts_s": parts,
            "window_s": ctx.window_s, "memory_peak_bytes": memory_peak,
            "launches_per_job": {k: (after[k] - before.get(k, 0)) / jobs for k in after}}
@@ -219,9 +238,6 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device,
 
         ctx.trace = tracing.read(prof)
         ctx.library = tracing.library_kernels(Path(infercnv_tpu_torch.__file__).parent)
-        ctx.band_nonzeros = reference.band_nonzeros(
-            genome, config["engine"]["smooth_method"],
-            int(config["engine"]["window_length"]))
         del prof
         if ctx.trace is not None:
             out["busy_s"] = ctx.trace.busy_s
@@ -245,8 +261,8 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device,
     del system
     if cuda:
         torch.cuda.empty_cache()
-    numbers = check.compare(config, genome, cohort, traffic,
-                            [results[k] for k in sorted(results)], device)
+    numbers = job.compare(config, traffic, data,
+                           [results[k] for k in sorted(results)], device)
     out["checks"] = {k: {"value": v if math.isfinite(v) else str(v),
                          "limit": cell["limits"].get(k)}
                      for k, v in numbers.items()}

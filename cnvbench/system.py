@@ -15,7 +15,6 @@ it is the control that the comparison must refuse.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Optional
 
@@ -25,31 +24,7 @@ import torch
 from cnvbench.cohort import Cohort, median_library_size, seed_int
 from cnvbench.genomes import Genome
 from cnvbench.reference import Reference, chunks
-
-class Spans:
-    """CUDA-event pairs and profiler labels around the program's calls; off
-    outside a traced run, where it does nothing."""
-
-    def __init__(self, on: bool):
-        self.on = on
-        self.pairs = {}
-
-    @contextlib.contextmanager
-    def __call__(self, kind: str):
-        if not self.on:
-            yield
-            return
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        with torch.profiler.record_function(f"cnvbench.{kind}"):
-            a.record()
-            yield
-            b.record()
-        self.pairs.setdefault(kind, []).append((a, b))
-
-    def ms(self, kind: str) -> list:
-        """Device milliseconds of each span of a kind (after a synchronise)."""
-        return [a.elapsed_time(b) for a, b in self.pairs.get(kind, [])]
+from cnvbench.trace import Spans
 
 
 class Keep:

@@ -8,7 +8,6 @@ Every one must come out not correct."""
 import pytest
 
 from cnvbench import faults, run
-from cnvbench.system import ReferenceSystem
 from cnvbench.tests.cells import CELLS, small
 
 
@@ -26,7 +25,7 @@ def test_fault_is_refused(name, fault):
 @pytest.mark.parametrize("name", CELLS)
 def test_control_is_refused(name):
     out = run.run_cell(small(name), 2_150_000_003, 0.2, False, "cpu",
-                       make_system=ReferenceSystem)
+                       control=True)
     assert not out["correct"], out["checks"]
     assert out["checks"]["resid_err"]["value"] > 3 * out["checks"]["resid_err"]["limit"]
 
@@ -41,4 +40,4 @@ def test_cell_and_control_on_card(name, cuda_device):
                            planted_subclusters=8, chunk_cells=4096)
     assert run.run_cell(cell, 2_150_000_004, 1.0, False, cuda_device)["correct"]
     assert not run.run_cell(cell, 2_150_000_005, 1.0, False, cuda_device,
-                            make_system=ReferenceSystem)["correct"]
+                            control=True)["correct"]

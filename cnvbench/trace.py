@@ -6,10 +6,13 @@ the window is the ``cnvbench.window`` annotation around the measured jobs.
 Busy time is the union of the device operations' intervals inside it.  An
 idle gap of the device is named by what the host was doing at its middle:
 the innermost ``cnvbench.*`` span and the innermost host operation.
+``Spans`` puts those spans, with a CUDA event pair each, around a job's
+calls.
 """
 
 from __future__ import annotations
 
+import contextlib
 import re
 from collections import defaultdict
 from pathlib import Path
@@ -155,3 +158,29 @@ def read(prof) -> Optional[Window]:
     host = sorted(((n, s, e) for n, s, e, th in host if th == thread),
                   key=lambda h: h[1])
     return Window(device, host, window)
+
+
+class Spans:
+    """CUDA-event pairs and profiler labels around the program's calls; off
+    outside a traced run, where it does nothing."""
+
+    def __init__(self, on: bool):
+        self.on = on
+        self.pairs = {}
+
+    @contextlib.contextmanager
+    def __call__(self, kind: str):
+        if not self.on:
+            yield
+            return
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        with torch.profiler.record_function(f"cnvbench.{kind}"):
+            a.record()
+            yield
+            b.record()
+        self.pairs.setdefault(kind, []).append((a, b))
+
+    def ms(self, kind: str) -> list:
+        """Device milliseconds of each span of a kind (after a synchronise)."""
+        return [a.elapsed_time(b) for a, b in self.pairs.get(kind, [])]
